@@ -1,0 +1,90 @@
+"""Carry state and tables between the JAX package and the port.
+
+``from_numpy`` turns a JAX-package NamedTuple tree whose leaves are numpy
+arrays (for example ``jax.tree.map(np.asarray, tb.state0)``) into the
+port's NamedTuple of the same type name, with torch tensors on
+``device``. ``to_numpy`` goes the other way: the port's types with numpy
+leaves. Plain tuples and lists (the static-shadow triple) convert element
+by element; ``None`` stays ``None``.
+
+This module imports no JAX: the trees arrive as numpy already.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .char.controller import CharParams, CharState
+from .engine.state import CameraState, EngineState, EntityParams, SceneConfig
+from .engine.step import Inputs
+from .physics.heightfield import Heightfield
+from .physics.narrowphase import StaticWorld
+from .physics.world import BodyParams, PhysState
+from .render.lights import Lights
+from .render.scenerender import RenderTables
+
+_TYPES = {cls.__name__: cls for cls in (
+    SceneConfig, EngineState, EntityParams, CameraState, StaticWorld,
+    Heightfield, BodyParams, PhysState, CharParams, CharState, Inputs,
+    RenderTables, Lights)}
+
+# host-side (trace-time) flags that stay Python bools in the port
+_PY_BOOL_FIELDS = {"any_material", "flat_eligible"}
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every non-None leaf of a NamedTuple/tuple tree."""
+    if tree is None:
+        return None
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    return fn(tree)
+
+
+def _convert_node(tree, leaf):
+    if tree is None:
+        return None
+    if _is_namedtuple(tree):
+        name = type(tree).__name__
+        cls = _TYPES.get(name)
+        if cls is None:
+            raise TypeError(f"no port type named {name}")
+        if tuple(cls._fields) != tuple(tree._fields):
+            raise TypeError(f"{name}: fields {tree._fields} do not match "
+                            f"the port's {cls._fields}")
+        vals = []
+        for f, x in zip(tree._fields, tree):
+            if f in _PY_BOOL_FIELDS and x is not None:
+                vals.append(bool(np.asarray(x)))
+            else:
+                vals.append(_convert_node(x, leaf))
+        return cls(*vals)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_convert_node(x, leaf) for x in tree)
+    return leaf(tree)
+
+
+def from_numpy(tree, device=None):
+    """JAX-package tree (numpy leaves) → port tree (torch leaves)."""
+    def leaf(x):
+        if isinstance(x, (bool, int, float)):
+            return x
+        return torch.as_tensor(np.array(x), device=device)
+
+    return _convert_node(tree, leaf)
+
+
+def to_numpy(tree):
+    """Port tree (torch leaves) → port tree with numpy leaves."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return x
+
+    return _convert_node(tree, leaf)

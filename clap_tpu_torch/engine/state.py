@@ -1,0 +1,120 @@
+"""Engine state schema (counterpart of clap_tpu/engine/state.py).
+
+The whole engine is one NamedTuple of SoA tensors with static capacities
+and validity masks. ``EngineState`` is per env: inside the step every
+field carries a leading env axis B (``replicate_state`` adds it to the
+unbatched template a scene builder returns). ``SceneConfig`` is static
+data shared by every env: collision world, body parameters, entity↔body
+wiring, per-model AABBs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..char.controller import CharParams, CharState
+from ..physics.narrowphase import StaticWorld
+from ..physics.world import BodyParams, PhysState
+
+
+class EntityParams(NamedTuple):
+    """Static per-entity-slot data, (E,) tensors."""
+
+    active: torch.Tensor       # bool
+    model_id: torch.Tensor     # int32 index into model tables
+    body: torch.Tensor         # int32 physics body slot, -1 = none
+    body_is_char: torch.Tensor  # bool: body is a kinematic character capsule
+    yoffset: torch.Tensor      # f32 geom offset
+    parent: torch.Tensor       # int32 parent entity, -1 = world
+    skip_culling: torch.Tensor  # bool (terrain sets ENTITY3D_SKIP_CULLING)
+
+
+class CameraState(NamedTuple):
+    """3rd-person orbit camera (camera.{c,h}): the ACTIVE camera."""
+
+    pitch: torch.Tensor        # f32 radians
+    yaw: torch.Tensor          # f32 radians
+    dist: torch.Tensor         # f32 orbit distance
+    pos: torch.Tensor          # (3,) derived eye position
+
+
+class EngineState(NamedTuple):
+    """Dynamic per-env state (leading env axis B inside the step)."""
+
+    pos: torch.Tensor          # (E, 3)
+    rot: torch.Tensor          # (E, 4) quats
+    scale: torch.Tensor        # (E,)
+    visible: torch.Tensor      # (E,) bool
+    mx: torch.Tensor           # (E, 4, 4) world matrices (refreshed per step)
+    phys: PhysState
+    chars: CharState           # (C, ...) stacked
+    camera: CameraState
+    time: torch.Tensor         # f32 seconds
+    frame: torch.Tensor        # int32
+    cameras: CameraState = None  # multi-camera bank (not ported: raises)
+
+
+class SceneConfig(NamedTuple):
+    """Static per-scene data shared by every env."""
+
+    world: StaticWorld
+    bodies: BodyParams
+    entities: EntityParams
+    char_params: CharParams    # (C,) stacked
+    model_aabb: torch.Tensor   # (M, 2, 3) min/max per model
+    limbo_height: torch.Tensor  # f32
+    gravity_y: torch.Tensor    # f32
+    camera_char: torch.Tensor = None
+    ent_rest_pos: torch.Tensor = None
+    ent_rest_rot: torch.Tensor = None
+
+
+def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,
+                      device=None) -> EngineState:
+    """Unbatched initial state (single active camera)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    bl = dict(dtype=torch.bool, device=device)
+    C = n_chars
+    chars = CharState(
+        velocity=torch.zeros(C, 3, **f32),
+        normal=torch.tensor([0.0, 1.0, 0.0], **f32).repeat(C, 1),
+        state=torch.zeros(C, **i32),
+        airborne=torch.zeros(C, **bl),
+        jump=torch.zeros(C, **bl),
+        moved=torch.zeros(C, **i32),
+        jump_start_cnt=torch.zeros(C, **i32),
+        collision=torch.full((C,), -1, **i32),
+        push_body=torch.full((C,), -1, **i32),
+        history=torch.zeros(C, 8, 3, **f32),
+        hist_head=torch.zeros(C, **i32),
+        hist_wrapped=torch.zeros(C, **bl),
+        dash_time=torch.full((C,), -1.0, **f32),
+    )
+    N = n_bodies
+    phys = PhysState(
+        pos=torch.zeros(N, 3, **f32),
+        vel=torch.zeros(N, 3, **f32),
+        quat=torch.tensor([0.0, 0.0, 0.0, 1.0], **f32).repeat(N, 1),
+        angvel=torch.zeros(N, 3, **f32),
+        time_acc=torch.zeros((), **f32),
+        disable_count=torch.zeros(N, **i32),
+        disabled=torch.zeros(N, **bl),
+    )
+    E = n_entities
+    return EngineState(
+        pos=torch.zeros(E, 3, **f32),
+        rot=torch.tensor([0.0, 0.0, 0.0, 1.0], **f32).repeat(E, 1),
+        scale=torch.ones(E, **f32),
+        visible=torch.zeros(E, **bl),
+        mx=torch.eye(4, **f32).repeat(E, 1, 1),
+        phys=phys,
+        chars=chars,
+        camera=CameraState(
+            pitch=torch.tensor(-0.3, **f32), yaw=torch.tensor(0.0, **f32),
+            dist=torch.tensor(8.0, **f32), pos=torch.zeros(3, **f32)),
+        time=torch.tensor(0.0, **f32),
+        frame=torch.tensor(0, **i32),
+        cameras=None,
+    )

@@ -1,0 +1,204 @@
+"""The per-frame engine step (counterpart of clap_tpu/engine/step.py;
+clap_frame, clap.c:551-665, headless part).
+
+Order mirrors the reference frame loop: input → character move → char
+push → phys_step → limbo → scene update (entity transforms from physics,
+TRS rebuild) → camera update. One call advances every env of a batched
+EngineState; characters iterate as a Python loop over the static char
+slots, everything else is masked tensor math.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import mathx as mx
+from ..char import controller as C
+from ..physics import world as W
+from .state import CameraState, EngineState, SceneConfig
+
+
+class Inputs(NamedTuple):
+    """Per-frame input record (the headless subset of struct
+    message_input, messagebus.h:33-89); (B, ...) inside the step."""
+
+    motion: torch.Tensor     # (C, 2) dx, dz per character
+    jump: torch.Tensor       # (C,) bool
+    cam_delta: torch.Tensor  # (3,) pitch, yaw, dist deltas
+    dash: torch.Tensor = None  # (C,) bool
+
+
+def inputs_zero(n_chars: int, device=None) -> Inputs:
+    return Inputs(
+        motion=torch.zeros((n_chars, 2), dtype=torch.float32, device=device),
+        jump=torch.zeros((n_chars,), dtype=torch.bool, device=device),
+        cam_delta=torch.zeros(3, dtype=torch.float32, device=device),
+        dash=torch.zeros((n_chars,), dtype=torch.bool, device=device),
+    )
+
+
+def _char(tree, ci: int):
+    """Slot ``ci`` of a (B, C, ...)-stacked NamedTuple."""
+    return type(tree)(*(x[:, ci] for x in tree))
+
+
+def _stack_chars(chars):
+    return type(chars[0])(*(torch.stack(xs, dim=1) for xs in zip(*chars)))
+
+
+def _char_params(cfg: SceneConfig, ci: int):
+    return type(cfg.char_params)(*(x[ci] for x in cfg.char_params))
+
+
+def _characters_move(cfg: SceneConfig, st: EngineState, inputs: Inputs, dt):
+    """scene_characters_move (scene.c:1058): rosters of ≤2 characters
+    update sequentially — later characters see earlier ones' new body
+    positions, like the C entity-list walk."""
+    n_chars = cfg.char_params.body.shape[0]
+    if n_chars == 0:
+        return st
+    if n_chars > 2:
+        raise NotImplementedError(
+            "rosters of more than 2 characters (the vmapped batch move)")
+    body_pos = st.phys.pos
+    new_chars = []
+    for ci in range(n_chars):
+        cp = _char_params(cfg, ci)
+        dash = None if inputs.dash is None else inputs.dash[:, ci]
+        p_new, cs2 = C.character_move(
+            cfg.world, cfg.bodies, cp, _char(st.chars, ci), body_pos,
+            inputs.motion[:, ci, 0], inputs.motion[:, ci, 1],
+            inputs.jump[:, ci], dt, dash_input=dash)
+        body_pos = C._set_body(body_pos, int(cp.body), p_new)
+        new_chars.append(cs2)
+    return st._replace(phys=st.phys._replace(pos=body_pos),
+                       chars=_stack_chars(new_chars))
+
+
+def _apply_char_push(cfg: SceneConfig, st: EngineState, dt):
+    """phys_body_push (physics.c:677-693): the character shoves the
+    dynamic body its sweep ran into (Δv = m_char·v_char·dt/m_body) and
+    re-enables it."""
+    vel = st.phys.vel
+    disabled = st.phys.disabled
+    bodies = cfg.bodies
+    dyn = bodies.active & ~bodies.kinematic
+    n = vel.shape[1]
+    inv_m = 1.0 / torch.clamp(bodies.mass, min=1e-6)
+    ar = torch.arange(n, device=vel.device)
+    for ci in range(cfg.char_params.body.shape[0]):
+        b = st.chars.push_body[:, ci]
+        sel = (ar[None, :] == b[:, None]) & dyn
+        m_char = bodies.mass[int(cfg.char_params.body[ci])]
+        dv = st.chars.velocity[:, ci][:, None, :] \
+            * (m_char * dt * inv_m)[None, :, None]
+        vel = vel + torch.where(sel[..., None], dv, 0.0)
+        disabled = disabled & ~sel
+    return st._replace(phys=st.phys._replace(vel=vel, disabled=disabled))
+
+
+def _limbo(cfg: SceneConfig, st: EngineState):
+    """character_update's limbo teleport (character.c:546-599)."""
+    body_pos = st.phys.pos
+    n_chars = cfg.char_params.body.shape[0]
+    if not n_chars:
+        return st
+    up = torch.tensor([0.0, 1.0, 0.0], device=body_pos.device)
+    new_chars = []
+    for ci in range(n_chars):
+        b = int(cfg.char_params.body[ci])
+        bp = body_pos[:, b]
+        yoff = cfg.bodies.yoffset[b]
+        new_pos, cs2, fell = C.limbo_rescue(_char(st.chars, ci),
+                                            bp - up * yoff, cfg.limbo_height)
+        geom_pos = new_pos + up * yoff
+        body_pos = C._set_body(body_pos, b,
+                               torch.where(fell[:, None], geom_pos, bp))
+        cs2 = cs2._replace(velocity=torch.where(fell[:, None], 0.0,
+                                                cs2.velocity))
+        new_chars.append(cs2)
+    return st._replace(phys=st.phys._replace(pos=body_pos),
+                       chars=_stack_chars(new_chars))
+
+
+def _scene_update(cfg: SceneConfig, st: EngineState):
+    """mq_update → entity3d default_update (model.c:1649-1723): sync
+    entity transforms from physics bodies, rebuild world matrices."""
+    ent = cfg.entities
+    has_body = ent.body >= 0
+    b = torch.clamp(ent.body, min=0).long()
+    geom_pos = st.phys.pos[:, b]                             # (B, E, 3)
+    z = torch.zeros_like(cfg.bodies.yoffset[b])
+    off = torch.stack([z, cfg.bodies.yoffset[b], z], dim=-1)
+    pos = torch.where(has_body[:, None], geom_pos - off, st.pos)
+    # dynamic bodies sync rotation; characters stay upright
+    dyn = has_body & ~ent.body_is_char
+    rot = torch.where(dyn[:, None], st.phys.quat[:, b], st.rot)
+    st = st._replace(rot=rot)
+    has_parent = ent.parent >= 0
+    p = torch.clamp(ent.parent, min=0).long()
+    pos = torch.where(has_parent[:, None], pos + st.pos[:, p], pos)
+    return st._replace(pos=pos, mx=mx.mat4_compose_trs(pos, st.rot,
+                                                       st.scale))
+
+
+def _camera_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
+                   camera_occlusion: bool = False):
+    """Orbit camera (camera.c:208-246): pitch-clamped quat orbit around
+    the slot-0 character, with the near-plane occlusion shrink when
+    ``camera_occlusion``. The state keeps the DESIRED distance; only the
+    eye position shrinks."""
+    from ..render.camera import camera_update, orbit_quat
+
+    cam = st.camera
+    d = inputs.cam_delta
+    pitch = torch.clamp(cam.pitch + d[:, 0], -1.45, 1.45)
+    yaw = torch.remainder(cam.yaw + d[:, 1] + math.pi, 2 * math.pi) \
+        - math.pi
+    dist = torch.clamp(cam.dist + d[:, 2], 1.0, 50.0)
+    b0 = int(cfg.char_params.body[0]) if cfg.char_params.body.shape[0] \
+        else 0
+    target = st.phys.pos[:, b0]
+    if camera_occlusion:
+        eye, _q, _deff = camera_update(cfg.world, target, pitch, yaw, dist)
+    else:
+        eye = mx.transform_orbit(orbit_quat(pitch, yaw), target, dist)
+    return st._replace(camera=CameraState(pitch=pitch, yaw=yaw, dist=dist,
+                                          pos=eye))
+
+
+def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
+                dt=1.0 / 60.0, max_substeps: int = 2, control=None,
+                head_target=None,
+                camera_occlusion: bool = False) -> EngineState:
+    """One headless frame for every env of ``st`` (leading env axis B).
+
+    max_substeps=2 is exact for 60 Hz frames. ``control`` /
+    ``head_target`` retarget the camera in the JAX package; the port does
+    not carry them yet and raises."""
+    if control is not None or head_target is not None:
+        raise NotImplementedError("camera control/head_target retargeting")
+    if st.cameras is not None or cfg.camera_char is not None:
+        raise NotImplementedError("multi-camera banks")
+    dev = st.pos.device
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+    # static-trimesh validity follows entity visibility (per env)
+    world = cfg.world
+    if world.tri_entity is not None:
+        if cfg.ent_rest_pos is not None:
+            raise NotImplementedError(
+                "static trimesh following its entity (ent_rest_pos)")
+        te = world.tri_entity
+        tvis = (te < 0) | st.visible[:, torch.clamp(te, min=0).long()]
+        world = world._replace(tri_valid=world.tri_valid & tvis)
+        cfg = cfg._replace(world=world)
+    st = _characters_move(cfg, st, inputs, dt)
+    st = _apply_char_push(cfg, st, dt)
+    st = st._replace(phys=W.phys_step(world, cfg.bodies, st.phys, dt,
+                                      max_substeps))
+    st = _limbo(cfg, st)
+    st = _scene_update(cfg, st)
+    st = _camera_update(cfg, st, inputs, camera_occlusion)
+    return st._replace(time=st.time + dt, frame=st.frame + 1)

@@ -1,0 +1,415 @@
+"""Frame graph (counterpart of clap_tpu/render/pipeline.py; reference
+core/pipeline.c + pipeline-builder.c:182-613).
+
+Each pass is a function over batched image tensors and the "graph" is
+function composition assembled from RenderOptions. The chain ported here
+is the composed frame of the kernel-attrs cluster-record path:
+
+  4-cascade VSM shadow atlas (K2) → model pass (K1 G-buffer, kernel-
+  interpolated normals, per-entity flat materials, deferred GGX with the
+  static × dynamic shadow factor) → sobel edges → SMAA-lite → shift SSAO
+  → bloom → fog → contrast → ACES → outlines → sRGB OETF.
+
+Every function takes a leading env axis B; there is one K1 launch and one
+K2 launch per pass for all envs. Options the port does not carry yet
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from .. import mathx as mx
+from . import post, shade
+from .lights import Lights, light_grid
+from .raster import (CLUSTER, GBuffer, assemble_tri_records, bin_triangles,
+                     clip_near_records, ent_pack_stride, project_to_screen,
+                     rasterize_attrs, rasterize_depth, tile_dims)
+from .view import cascade_subviews
+
+
+@dataclass(frozen=True)
+class RenderOptions:
+    """render_options (pipeline.h:15-57): the JAX package's RenderOptions
+    and defaults, without the fields only unported paths read
+    (attr_bf16, fog_3d_amp, fog_3d_scale)."""
+
+    width: int = 1280
+    height: int = 720
+    shadow_size: int = 1024
+    shadow_vsm: bool = True
+    ssao: bool = True
+    ssao_mode: str = "shift"
+    bloom: bool = True
+    edge_aa: bool = True
+    edge_sobel: bool = True
+    lighting_lut: bool = False
+    hdr: bool = False
+    bloom_intensity: float = 1.0
+    bloom_threshold: float = 1.0
+    lighting_exposure: float = 1.0
+    contrast: float = 0.1
+    fog_near: float = 80.0
+    fog_far: float = 160.0
+    fog_color: tuple = (0.58, 0.68, 0.78)
+    record_compact: int = 0
+    internal_scale: int = 1
+    model_msaa: int = 1
+    shadow_msaa: int = 1
+    fog_noise: bool = False
+    material_fog: bool = False
+    film_grain: float = 0.03
+    tonemap_aces: bool = True
+    shadow_outline_threshold: float = 0.5
+    outline_strength: float = 0.35
+    raster_cap: int = 0
+    kernel_attrs: bool = False
+
+
+class SceneGeometry(NamedTuple):
+    """Render geometry (fields as in the JAX package). In the batched
+    cluster-record path ``comp``/``comp_valid``/``comp_ent``,
+    ``ent_rot``, ``shadow_face_valid`` and ``shadow_corner_verts`` carry a
+    leading env axis; tables (faces, ent_flat, shadow_faces) are shared."""
+
+    verts: torch.Tensor
+    normals: torch.Tensor
+    faces: torch.Tensor
+    face_valid: torch.Tensor
+    base_color: torch.Tensor
+    rough_metal: torch.Tensor
+    emission: torch.Tensor
+    uv: torch.Tensor = None
+    tangent: torch.Tensor = None
+    tex_id: torch.Tensor = None
+    local_pos: torch.Tensor = None
+    mat_fbm: torch.Tensor = None
+    edge_id: torch.Tensor = None
+    face_entity: torch.Tensor = None
+    ent_rot: torch.Tensor = None
+    shadow_faces: torch.Tensor = None
+    shadow_face_valid: torch.Tensor = None
+    ent_flat: torch.Tensor = None
+    corner_verts: torch.Tensor = None
+    corner_normals: torch.Tensor = None
+    shadow_corner_verts: torch.Tensor = None
+    comp: torch.Tensor = None
+    comp_valid: torch.Tensor = None
+    comp_ent: torch.Tensor = None
+
+
+def clip_transform(verts, view, proj):
+    """World points (B, V, 3) → clip (B, V, 4) with per-env view (B, 4, 4)
+    and a shared or per-env proj."""
+    vp = proj @ view
+    v4 = torch.cat([verts, torch.ones_like(verts[..., :1])], -1)
+    return v4 @ vp.transpose(-1, -2)
+
+
+def shadow_records(opts: RenderOptions, geom: SceneGeometry, casc_views,
+                   casc_projs):
+    """The two-sided depth records of every env's cascade atlas and their
+    band-clamped binning. Returns (rec, binned, (width, height, tile_h,
+    tile_w)) — the atlas is (C·S, S), cascade c in rows [c·S, (c+1)·S)."""
+    if opts.shadow_msaa > 1:
+        raise NotImplementedError("shadow_msaa > 1")
+    s = opts.shadow_size
+    B, n_casc = casc_views.shape[:2]
+    if geom.shadow_faces is not None:
+        faces0, valid0 = geom.shadow_faces, geom.shadow_face_valid
+    else:
+        faces0, valid0 = geom.faces, geom.face_valid
+    pre = geom.shadow_corner_verts is not None
+    pad = (-faces0.shape[0]) % CLUSTER
+    dev = casc_views.device
+    if pad:
+        faces0 = torch.cat([faces0, faces0.new_zeros(pad, 3)])
+        valid0 = torch.cat([valid0, valid0.new_zeros(B, pad)], dim=-1)
+    if pre:
+        src = geom.shadow_corner_verts
+        if src.shape[-2] != 3 * (faces0.shape[0] - pad):
+            raise ValueError("shadow_corner_verts does not match the "
+                             "shadow face stream")
+        if pad:
+            src = torch.cat([src, src.new_zeros(B, 3 * pad, 3)], dim=1)
+    else:
+        src = geom.verts
+    sxs, sys_, zs, iws = [], [], [], []
+    for c in range(n_casc):
+        clip = clip_transform(src, casc_views[:, c], casc_projs[:, c])
+        sx, sy, z, iw = project_to_screen(clip, s, s)
+        sxs.append(sx)
+        sys_.append(sy + c * s)       # atlas band offset
+        zs.append(z)
+        iws.append(iw)
+    sx, sy, z, iw = (torch.cat(a, dim=-1) for a in (sxs, sys_, zs, iws))
+    V = src.shape[-2]
+    faces = None if pre else \
+        torch.cat([faces0 + c * V for c in range(n_casc)])
+    valid = torch.cat([valid0] * n_casc, dim=-1)
+    rec, ok = assemble_tri_records(sx, sy, z, iw, faces, valid,
+                                   two_sided=True, pre_expanded=pre)
+    th, tw = tile_dims(s, n_casc * s)
+    T = faces0.shape[0]
+    band = torch.arange(n_casc, dtype=torch.int32,
+                        device=dev).repeat_interleave(T)
+    binned = bin_triangles(rec, ok, s, n_casc * s, band_id=band,
+                           band_tiles=s // th, tile_h=th, tile_w=tw)
+    return rec, binned, (s, n_casc * s, th, tw)
+
+
+def shadow_pass_all(opts: RenderOptions, geom: SceneGeometry, casc_views,
+                    casc_projs):
+    """All cascades of every env in ONE depth raster (one K2 launch) over a
+    vertically stacked (C·S, S) atlas per env: casc_views/casc_projs
+    (B, C, 4, 4). Returns (B, C, S, S, 2) linearized VSM moments."""
+    B, n_casc = casc_views.shape[:2]
+    s = opts.shadow_size
+    rec, binned, (w, h, th, tw) = shadow_records(opts, geom, casc_views,
+                                                 casc_projs)
+    depth = rasterize_depth(rec, binned, w, h, th, tw)
+    d = torch.where(torch.isfinite(depth), depth * 0.5 + 0.5, 1.0)
+    return torch.stack([d, d * d], dim=-1).reshape(B, n_casc, s, s, 2)
+
+
+def surface_records(opts: RenderOptions, geom: SceneGeometry):
+    """Near-clipped 22-column extras records of every env's cluster-record
+    geometry and their binning. Returns (rec, binned, stride)."""
+    W, H = opts.width, opts.height
+    if geom.comp is None:
+        raise NotImplementedError(
+            "kernel_attrs over member-granularity geometry (faces/vextra)")
+    if geom.ent_rot is None or geom.ent_flat is None:
+        raise ValueError("kernel_attrs needs ent_rot and ent_flat")
+    n_ent = geom.ent_rot.shape[-3]
+    T = geom.comp.shape[-1]
+    stride = ent_pack_stride(n_ent)
+    if 2 * T * stride >= 1 << 24:
+        raise ValueError(
+            f"kernel_attrs limit exceeded: T={T} with E={n_ent} "
+            f"(stride {stride}) needs 2·T·stride < 2^24")
+    comps = [[geom.comp[:, c * 7 + i] for i in range(7)] for c in range(3)]
+    rec, ok, _csrc, _ = clip_near_records(
+        None, None, W, H, geom.comp_valid, tid_pack=geom.comp_ent,
+        pack_stride=stride, components=comps)
+    binned = bin_triangles(rec, ok, W, H, cap=opts.raster_cap or None)
+    return rec, binned, stride
+
+
+def _surface_kernel_attrs(opts: RenderOptions, geom: SceneGeometry):
+    """Kernel-side attribute interpolation over cluster-record geometry:
+    K1 interpolates iw·(model-local normal) in its d0/d1/s planes and
+    carries tid·stride + entity in its float id; every other attribute is
+    per-entity flat (geom.ent_flat), looked up per pixel by entity id."""
+    W, H = opts.width, opts.height
+    rec, binned, stride = surface_records(opts, geom)
+    B = geom.comp.shape[0]
+    n_ent = geom.ent_rot.shape[-3]
+    depth, pid, nraw = rasterize_attrs(rec, binned, W, H)
+    gb = GBuffer(depth=depth, tri_id=pid,
+                 bary=torch.zeros(pid.shape + (2,), device=pid.device))
+    hit_px = pid >= 0
+    # background → the appended all-zero row (the reference's one-hot
+    # lookup matches no entity there)
+    ent = torch.where(hit_px, torch.remainder(pid, stride), n_ent).long()
+    tbl = torch.cat([geom.ent_rot.reshape(B, n_ent, 9),
+                     geom.ent_flat.expand(B, n_ent, 9)], dim=-1)
+    tbl = torch.cat([tbl, tbl.new_zeros(B, 1, 18)], dim=1)
+    px = torch.gather(tbl, 1, ent.reshape(B, -1, 1).expand(-1, -1, 18)
+                      ).reshape(*ent.shape, 18)
+    Rpx = px[..., :9].reshape(*ent.shape, 3, 3)
+    nrm = (Rpx @ nraw[..., None])[..., 0]
+    nrm = nrm / torch.clamp(
+        torch.sqrt(torch.sum(nrm * nrm, -1, keepdim=True)), min=1e-6)
+    eid_px = px[..., 17] if geom.edge_id is not None else None
+    return (gb, nrm, px[..., 9:12], px[..., 12], px[..., 13],
+            px[..., 14:17], eid_px)
+
+
+def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
+               cam_proj, lights: Lights, eye, shadow_moments=None,
+               shadow_mvps=None, cascade_dists=None, static_shadow=None):
+    """MRT model pass (pipeline-builder.c:329-364) as raster + deferred
+    shading. Returns (hdr, emission, view normals, gbuffer, view_pos,
+    edge_meta)."""
+    if not opts.kernel_attrs:
+        raise NotImplementedError("the per-pixel attribute gather path "
+                                  "(_surface_gather)")
+    if not opts.shadow_vsm:
+        raise NotImplementedError("PCF shadows (shadow_vsm=False)")
+    if opts.material_fog:
+        raise NotImplementedError("material_fog")
+    W, H = opts.width, opts.height
+    dev = cam_view.device
+    gb, nrm, base, rough, metal, emission, eid_px = \
+        _surface_kernel_attrs(opts, geom)
+
+    # world position from depth (inverse view-projection unproject)
+    hit2 = gb.tri_id >= 0
+    d_ndc = torch.where(torch.isfinite(gb.depth), gb.depth, 1.0)
+    ndc_x = (torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+             + 0.5) / W * 2.0 - 1.0
+    ndc_y = 1.0 - 2.0 * (torch.arange(H, device=dev,
+                                      dtype=torch.float32)[:, None] + 0.5) / H
+    inv_vp = torch.linalg.inv(cam_proj @ cam_view)[:, None, None]
+    p4 = (inv_vp[..., :, 0] * ndc_x.expand(H, W)[..., None]
+          + inv_vp[..., :, 1] * ndc_y.expand(H, W)[..., None]
+          + inv_vp[..., :, 2] * d_ndc[..., None]
+          + inv_vp[..., :, 3])
+    w4 = p4[..., 3:4]
+    wpos = torch.where(hit2[..., None],
+                       p4[..., :3] / torch.where(torch.abs(w4) < 1e-12,
+                                                 1.0, w4), 0.0)
+    view_b = cam_view[:, None, None]
+    vpos = mx.mat4_transform_point(view_b, wpos)
+    vnrm = mx.mat4_transform_dir(view_b, nrm)
+    view_depth = -vpos[..., 2]
+
+    sf = None
+    q_pos = q_vd = None
+    if shadow_moments is not None or static_shadow is not None:
+        q_pos = post.downsample_pool(wpos, 4)
+        q_vd = post.downsample_pool(view_depth, 4)
+
+    def _up(sf_q):
+        sf_h = post.upsample2(sf_q[..., None], sf_q.shape[1] * 2,
+                              sf_q.shape[2] * 2)
+        return post.upsample2(sf_h, H, W)[..., 0]
+
+    if shadow_moments is not None:
+        sf = _up(shade.vsm_shadow(shadow_moments, shadow_mvps,
+                                  cascade_dists, q_pos, q_vd))
+    if static_shadow is not None:
+        sm_s, mvp_s, cd_s = static_shadow
+        sf_s = _up(shade.vsm_shadow(sm_s, mvp_s, cd_s, q_pos, q_vd))
+        sf = sf_s if sf is None else sf * sf_s
+    if sf is not None:
+        l0 = -lights.direction[0]
+        ndl = torch.clamp(torch.sum(nrm * l0, -1), 0.0, 1.0)
+        sf = sf + (1.0 - sf) * torch.pow(1.0 - ndl, 1.3)
+
+    tile_mask = light_grid(lights, cam_view, cam_proj, W, H)
+    mat = shade.Material(base_color=base, roughness=rough, metallic=metal,
+                         emission=emission)
+    hdr = shade.shade_pixels(wpos, nrm, eye, mat, lights, tile_mask,
+                             shadow_factor=sf)
+    fog_c = torch.tensor(opts.fog_color, device=dev)
+    hdr = torch.where(hit2[..., None], hdr, fog_c)
+    emit = post.bloom_threshold(emission, opts.bloom_threshold,
+                                opts.bloom_intensity)
+
+    edge_meta = None
+    if eid_px is not None:
+        # edge-mode key (RT2 alpha packing, model.frag:109-125)
+        excl = eid_px >= 128.0
+        sid = torch.remainder(eid_px, 128.0)
+        luma = torch.sum(vnrm * 0.5 + 0.5, -1) / 3.0
+        lq = torch.floor(torch.clamp(luma, 0.0, 1.0) * 7.0)
+        if sf is not None:
+            lq = torch.where(sf < opts.shadow_outline_threshold, 7.0 - lq, lq)
+        key = sid * 8.0 + lq
+        edge_meta = (torch.where(hit2, key, -8.0), excl)
+    return hdr, emit, vnrm, gb, vpos, edge_meta
+
+
+def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
+                 cam_proj, lights: Lights, eye, far: float = 200.0,
+                 shadow_moments=None, shadow_mvps=None, cascade_dists=None,
+                 static_shadow=None, grain_noise=None, lut_volume=None,
+                 particles=None, textures=None, base_texture=None):
+    """The canonical frame for every env: cam_view (B, 4, 4), cam_proj
+    (4, 4), eye (B, 3). Returns the LDR image (B, H, W, 3)."""
+    for flag, name in ((opts.internal_scale > 1, "internal_scale > 1"),
+                       (opts.model_msaa > 1, "model_msaa > 1"),
+                       (opts.ssao and opts.ssao_mode != "shift",
+                        f"ssao_mode={opts.ssao_mode!r}"),
+                       (opts.fog_noise, "fog_noise"),
+                       (opts.lighting_lut, "lighting_lut"),
+                       (not opts.edge_sobel, "laplace edges"),
+                       (particles is not None, "particles"),
+                       (grain_noise is not None, "film grain"),
+                       (lut_volume is not None, "lighting LUT"),
+                       (textures is not None or base_texture is not None,
+                        "textures")):
+        if flag:
+            raise NotImplementedError(name)
+    W, H = opts.width, opts.height
+    dev = cam_view.device
+
+    casters = geom.shadow_faces if geom.shadow_faces is not None \
+        else geom.faces
+    if shadow_moments is None and casters.shape[0] > 0 \
+            and lights.active.shape[0] > 0:
+        casc, cascade_dists = cascade_subviews(
+            cam_view, cam_proj, lights.direction[0], 0.1, far)
+        shadow_moments = shadow_pass_all(opts, geom, casc.view, casc.proj)
+        shadow_mvps = casc.proj @ casc.view
+
+    hdr, emit, vnrm, gb, vpos, edge_meta = model_pass(
+        opts, geom, cam_view, cam_proj, lights, eye, shadow_moments,
+        shadow_mvps, cascade_dists, static_shadow=static_shadow)
+
+    if edge_meta is not None:
+        key, excl = edge_meta
+        edges = post.sobel_edges(key / 8.0)
+        ex = excl
+        for ax, sh in ((1, 1), (1, -1), (2, 1), (2, -1)):
+            ex = ex | torch.roll(excl, sh, dims=ax)
+        edges = torch.where(ex, 0.0, edges)
+    else:
+        luma = torch.sum(vnrm * 0.5 + 0.5, -1) / 3.0
+        edges = post.sobel_edges(luma)
+    edge_mask = torch.clamp(edges * 2.0, 0.0, 1.0)
+
+    smaa_weights = None
+    if opts.edge_aa:
+        smaa_weights = post.smaa_blend_weights(edge_mask)
+        hdr = post.smaa_neighborhood_blend(hdr, smaa_weights)
+
+    if opts.ssao:
+        q_pos = post.downsample_pool(vpos, 4)
+        q_nrm = post.downsample_pool(vnrm, 4)
+        q_nrm = q_nrm / torch.clamp(
+            torch.sqrt(torch.sum(q_nrm * q_nrm, -1, keepdim=True)), min=1e-6)
+        ao_q = post.ssao_blur(post.ssao_shift(q_pos, q_nrm))
+        ao = post.upsample2(post.upsample2(
+            ao_q, ao_q.shape[1] * 2, ao_q.shape[2] * 2), H, W)
+        hdr = hdr * (0.4 + 0.6 * ao[..., None])
+
+    view_dist = torch.sqrt(torch.sum(vpos * vpos, -1))
+    view_dist = torch.where(gb.tri_id >= 0, view_dist, 1e9)
+    fog_f = torch.clamp((view_dist - opts.fog_near)
+                        / max(opts.fog_far - opts.fog_near, 1e-6), 0.0, 1.0)
+
+    color = hdr * opts.lighting_exposure
+    if opts.bloom:
+        bloom = post.upsample2(
+            post.gauss_blur_v(post.gauss_blur_h(
+                post.downsample2(post.downsample2(emit)))), H, W)
+        color = color + bloom * (opts.bloom_intensity
+                                 * (1.0 - fog_f))[..., None]
+    fc = torch.tensor(opts.fog_color, dtype=color.dtype, device=dev)
+    color = color * (1.0 - fog_f[..., None]) + fc * fog_f[..., None]
+    color = post.contrast(color, opts.contrast)
+    color = shade.tonemap_aces(color) if opts.tonemap_aces else \
+        shade.tonemap_reinhard(color)
+    if opts.outline_strength > 0:
+        fade = 1.0 - fog_f
+        if smaa_weights is not None:
+            fade = fade * (1.0 - 0.5 * torch.sum(smaa_weights, -1))
+        color = color * (1.0 - opts.outline_strength * edge_mask
+                         * fade)[..., None]
+    return shade.oetf_pq(color) if opts.hdr else shade.oetf_srgb(color)
+
+
+def render_frame_dynamic_batch(opts: RenderOptions, geom: SceneGeometry,
+                               cam_views, cam_proj, lights: Lights, eyes,
+                               far: float = 200.0, **kw):
+    """Render B envs with PER-ENV dynamic geometry (the composed
+    step-and-render frame): geom from assemble_cluster_records_batch,
+    cam_views (B, 4, 4), eyes (B, 3); each env fits and renders its own
+    CSM atlas. Returns (B, H, W, 3)."""
+    return render_frame(opts, geom, cam_views, cam_proj, lights, eyes,
+                        far=far, **kw)

@@ -1,0 +1,167 @@
+"""Post-processing image ops (counterpart of clap_tpu/render/post.py).
+
+Images are batched: (B, H, W) or (B, H, W, C) — spatial axes 1 and 2.
+Stencils clamp at the image edge (texture clamp-to-edge semantics).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _pad_edge(img, ry: int, rx: int):
+    """Edge-pad the spatial axes once for a stencil of radius (ry, rx)."""
+    h, w = img.shape[1], img.shape[2]
+    iy = torch.clamp(torch.arange(-ry, h + ry, device=img.device), 0, h - 1)
+    ix = torch.clamp(torch.arange(-rx, w + rx, device=img.device), 0, w - 1)
+    return img[:, iy][:, :, ix]
+
+
+def _tap(p, dy: int, dx: int, ry: int, rx: int, h: int, w: int):
+    """result[:, y, x] = img[:, clamp(y+dy), clamp(x+dx)] given
+    p = _pad_edge(img, ry, rx)."""
+    return p[:, ry + dy:ry + dy + h, rx + dx:rx + dx + w]
+
+
+def _pool(img, f: int):
+    """f×f window sums over the spatial axes (cropped to multiples of f)."""
+    B, h, w = img.shape[0], img.shape[1] // f, img.shape[2] // f
+    c = img[:, :h * f, :w * f]
+    return c.reshape(B, h, f, w, f, *img.shape[3:]).sum(dim=(2, 4))
+
+
+def downsample2(img):
+    """½-res 2×2 box downsample (downsample.frag)."""
+    return _pool(img, 2) * 0.25
+
+
+def downsample_pool(img, f: int):
+    """f×f average pool."""
+    return _pool(img, f) / (f * f)
+
+
+def upsample2(img, out_h: int, out_w: int):
+    """Integer-factor upsample (repeat + one half-pixel smoothing tap,
+    upsample.frag)."""
+    h, w = img.shape[1], img.shape[2]
+    if out_h % h or out_w % w:
+        raise NotImplementedError("non-integer upsample (bilinear resize)")
+    up = img.repeat_interleave(out_h // h, dim=1) \
+        .repeat_interleave(out_w // w, dim=2)
+    pd = _pad_edge(up, 1, 1)
+    return 0.25 * (up + _tap(pd, 0, 1, 1, 1, out_h, out_w)
+                   + _tap(pd, 1, 0, 1, 1, out_h, out_w)
+                   + _tap(pd, 1, 1, 1, 1, out_h, out_w))
+
+
+# 11-tap Gaussian, matching the reference's separable blur weights
+_G11 = np.array([0.0093, 0.028002, 0.065984, 0.121703, 0.175713, 0.198596,
+                 0.175713, 0.121703, 0.065984, 0.028002, 0.0093], np.float32)
+_G11 /= _G11.sum()
+
+
+def gauss_blur_h(img):
+    h, w = img.shape[1], img.shape[2]
+    pd = _pad_edge(img, 0, 5)
+    acc = torch.zeros_like(img)
+    for i, wgt in enumerate(_G11):
+        acc = acc + float(wgt) * _tap(pd, 0, i - 5, 0, 5, h, w)
+    return acc
+
+
+def gauss_blur_v(img):
+    h, w = img.shape[1], img.shape[2]
+    pd = _pad_edge(img, 5, 0)
+    acc = torch.zeros_like(img)
+    for i, wgt in enumerate(_G11):
+        acc = acc + float(wgt) * _tap(pd, i - 5, 0, 5, 0, h, w)
+    return acc
+
+
+def bloom_threshold(emission, threshold, intensity):
+    """RT1 emission shaping (model.frag:84-101)."""
+    return torch.clamp(emission - threshold, min=0.0) * abs(intensity)
+
+
+def sobel_edges(img_luma):
+    """Sobel magnitude on a single-channel image (B, H, W)."""
+    h, w = img_luma.shape[1], img_luma.shape[2]
+    pd = _pad_edge(img_luma, 1, 1)
+
+    def t(dy, dx):
+        return _tap(pd, dy, dx, 1, 1, h, w)
+
+    gx = (t(-1, 1) + 2 * t(0, 1) + t(1, 1)
+          - t(-1, -1) - 2 * t(0, -1) - t(1, -1))
+    gy = (t(1, -1) + 2 * t(1, 0) + t(1, 1)
+          - t(-1, -1) - 2 * t(-1, 0) - t(-1, 1))
+    return torch.sqrt(gx * gx + gy * gy)
+
+
+def smaa_blend_weights(edges):
+    """4-direction edge continuity weights (smaa-blend-weights.frag)."""
+    h, w = edges.shape[1], edges.shape[2]
+    pd = _pad_edge(edges, 1, 1)
+    el = _tap(pd, 0, -1, 1, 1, h, w)
+    er = _tap(pd, 0, 1, 1, 1, h, w)
+    eu = _tap(pd, -1, 0, 1, 1, h, w)
+    ed = _tap(pd, 1, 0, 1, 1, h, w)
+    tot = el + er + eu + ed + 1e-6
+    return torch.stack([el, er, eu, ed], -1) / tot[..., None] \
+        * torch.clamp(edges, 0.0, 1.0)[..., None]
+
+
+def smaa_neighborhood_blend(color, weights):
+    """Blend each pixel toward its neighbours by the SMAA weights."""
+    wsum = torch.sum(weights, -1, keepdim=True)
+    h, w = color.shape[1], color.shape[2]
+    pd = _pad_edge(color, 1, 1)
+    blended = (
+        weights[..., 0:1] * _tap(pd, 0, -1, 1, 1, h, w)
+        + weights[..., 1:2] * _tap(pd, 0, 1, 1, 1, h, w)
+        + weights[..., 2:3] * _tap(pd, -1, 0, 1, 1, h, w)
+        + weights[..., 3:4] * _tap(pd, 1, 0, 1, 1, h, w)
+    )
+    return color * (1 - wsum * 0.5) + blended * 0.5
+
+
+_SSAO_TAPS = ((0, 1), (1, 1), (2, 0), (2, -2), (0, -3), (-3, -2),
+              (-4, 0), (-3, 3), (0, 5), (4, 4), (1, -2), (-2, 1),
+              (5, 0), (-5, 1), (-1, -5), (2, 4))
+
+
+def ssao_shift(view_pos, view_normal, radius: float = 0.5,
+               bias: float = 0.025):
+    """Gather-free SSAO with 16 fixed screen-space taps, scored
+    horizon-style and attenuated by distance. view_pos (B, H, W, 3);
+    returns (B, H, W) in [0, 1] (1 = unoccluded)."""
+    n = view_normal
+    occ = torch.zeros(view_pos.shape[:3], dtype=view_pos.dtype,
+                      device=view_pos.device)
+    h, w = view_pos.shape[1], view_pos.shape[2]
+    pd = _pad_edge(view_pos, 5, 5)
+    for dy, dx in _SSAO_TAPS:
+        dvec = _tap(pd, dy, dx, 5, 5, h, w) - view_pos
+        d2 = torch.sum(dvec * dvec, -1)
+        inv_d = torch.rsqrt(torch.clamp(d2, min=1e-8))
+        elev = torch.sum(n * dvec, -1) * inv_d
+        atten = torch.clamp(radius * radius / torch.clamp(d2, min=1e-8),
+                            0.0, 1.0)
+        occ = occ + torch.clamp(elev - bias, min=0.0) * atten
+    return 1.0 - torch.clamp(occ / (len(_SSAO_TAPS) * 0.5), 0.0, 1.0)
+
+
+def ssao_blur(ao):
+    """4×4 box blur of the ¼-res AO (pipeline-builder.c:457-486)."""
+    acc = torch.zeros_like(ao)
+    h, w = ao.shape[1], ao.shape[2]
+    pd = _pad_edge(ao, 2, 2)
+    for dy in (-1, 0, 1, 2):
+        for dx in (-1, 0, 1, 2):
+            acc = acc + _tap(pd, dy, dx, 2, 2, h, w)
+    return acc / 16.0
+
+
+def contrast(color, amount):
+    """Contrast about 0.5 (contrast.frag; combine.frag)."""
+    return torch.clamp((color - 0.5) * (1.0 + amount) + 0.5, 0.0, 1.0)

@@ -1,0 +1,208 @@
+"""Deferred shading: BRDF, shadows, tonemap, OETF (counterpart of
+clap_tpu/render/shade.py; reference shaders lighting.glsl, shadow.glsl,
+tonemap.glsl, oetf.glsl).
+
+Elementwise image math over batched (B, H, W[, C]) tensors. The per-pixel
+attribute-gather path of the JAX package (interpolate_attrs, material
+fBm, PCF) is not ported: the slice shades from kernel-interpolated
+normals and per-entity flat materials.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .lights import LIGHT_TILE, Lights
+
+
+class Material(NamedTuple):
+    base_color: torch.Tensor   # (..., 3)
+    roughness: torch.Tensor    # (...)
+    metallic: torch.Tensor     # (...)
+    emission: torch.Tensor     # (..., 3)
+
+
+def _unit(v, eps=1e-6):
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    return v / torch.clamp(n, min=eps)
+
+
+def ggx_brdf(n, v, l, base_color, roughness, metallic):
+    """Per-light Cook-Torrance term (lighting.glsl:94-139): (diffuse,
+    specular), each already scaled by NdotL."""
+    alpha = torch.clamp(roughness * roughness, 0.05, 0.98)
+    h = _unit(v + l)
+    ndl = torch.clamp(torch.sum(n * l, -1), min=0.0)
+    ndv = torch.clamp(torch.sum(n * v, -1), min=1e-4)
+    ndh = torch.clamp(torch.sum(n * h, -1), min=0.0)
+    vdh = torch.clamp(torch.sum(v * h, -1), min=0.0)
+
+    a2 = alpha * alpha
+    denom = ndh * ndh * (a2 - 1.0) + 1.0
+    D = a2 / torch.clamp(math.pi * denom * denom, min=1e-6)
+
+    m = metallic[..., None]
+    f0 = 0.04 * (1.0 - m) + base_color * m
+    F = f0 + (1.0 - f0) * torch.pow(1.0 - vdh, 5.0)[..., None]
+
+    k = (alpha + 1.0) ** 2 / 8.0
+    g1 = ndl / torch.clamp(ndl * (1 - k) + k, min=1e-6)
+    g2 = ndv / torch.clamp(ndv * (1 - k) + k, min=1e-6)
+    G = g1 * g2
+
+    spec = F * (D * G / torch.clamp(4.0 * ndl * ndv, min=1e-6))[..., None]
+    kd = (1.0 - F) * (1.0 - m)
+    diff = kd * base_color / math.pi
+    return diff * ndl[..., None], spec * ndl[..., None]
+
+
+def attenuation(att, dist):
+    """1/(kc + kl·d + kq·d²) (lighting.glsl:98-99)."""
+    return 1.0 / torch.clamp(
+        att[..., 0] + att[..., 1] * dist + att[..., 2] * dist * dist,
+        min=1e-6)
+
+
+def spot_factor(l, light_dir, cutoff):
+    """Spotlight smoothstep (lighting.glsl:57-66); cutoff <= -1 → 1."""
+    cd = torch.sum(-l * light_dir, dim=-1)
+    co = torch.cos(torch.acos(torch.clamp(cutoff, -1.0, 1.0))
+                   + math.radians(5.0))
+    t = torch.clamp((cd - co) / torch.clamp(cutoff - co, min=1e-6), 0.0, 1.0)
+    f = t * t * (3.0 - 2.0 * t)
+    return torch.where(cutoff <= -1.0, 1.0, f)
+
+
+def shade_pixels(world_pos, normal, view_pos, mat: Material, lights: Lights,
+                 tile_mask, shadow_factor=None, ambient=0.1,
+                 shadow_tint=None):
+    """Accumulate all lights (model.frag main loop, lighting.glsl:141-207)
+    for world_pos/normal (B, H, W, 3), view_pos (B, 3), tile_mask
+    (B, nty, ntx, L). Light 0 is the shadow caster: its diffuse is tinted
+    and its specular zeroed where shadowed."""
+    H, W = world_pos.shape[1:3]
+    dev = world_pos.device
+    v = _unit(view_pos[:, None, None, :] - world_pos)
+    pix_mask = tile_mask.repeat_interleave(LIGHT_TILE, dim=1) \
+        .repeat_interleave(LIGHT_TILE, dim=2)[:, :H, :W]
+    total_d = torch.zeros_like(mat.base_color)
+    total_s = torch.zeros_like(mat.base_color)
+    if shadow_factor is None:
+        shadow_factor = torch.ones(world_pos.shape[:3], device=dev)
+    if shadow_tint is None:
+        shadow_tint = torch.tensor([0.3, 0.3, 0.4], device=dev)
+    for li in range(lights.pos.shape[0]):
+        to_l = torch.where(lights.is_dir[li], -lights.direction[li],
+                           lights.pos[li] - world_pos)
+        dist = torch.sqrt(torch.sum(to_l * to_l, dim=-1))
+        l = to_l / torch.clamp(dist[..., None], min=1e-6)
+        diff, spec = ggx_brdf(normal, v, l, mat.base_color, mat.roughness,
+                              mat.metallic)
+        att = torch.where(lights.is_dir[li], 1.0,
+                          attenuation(lights.attenuation[li], dist))
+        att = att * spot_factor(l, lights.direction[li], lights.cutoff[li])
+        ca = lights.color[li] * att[..., None]
+        d_li, s_li = diff * ca, spec * ca
+        if li == 0:
+            sf = shadow_factor[..., None]
+            d_li = d_li * sf + d_li * shadow_tint * (1 - sf)
+            s_li = s_li * sf
+        m = pix_mask[..., li:li + 1]
+        total_d = total_d + torch.where(m, d_li, 0.0)
+        total_s = total_s + torch.where(m, s_li, 0.0)
+    amb_tint = 1.0 * shadow_factor[..., None] \
+        + shadow_tint * (1 - shadow_factor[..., None])
+    total_d = total_d + ambient * mat.base_color * amb_tint
+    return total_d + total_s
+
+
+def select_cascade(view_depth, cascade_dists):
+    """First cascade whose far distance exceeds the pixel's view depth
+    (shadow.glsl:148-155)."""
+    past = view_depth[..., None] >= cascade_dists
+    return torch.clamp(torch.sum(past, -1), max=cascade_dists.shape[-1] - 1)
+
+
+def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
+               view_depth, light_bleed=0.8):
+    """Variance shadow maps (shadow.glsl:97-121): Chebyshev bound with
+    light-bleed clamp + smoothstep remap, one bilinear fetch from the
+    vertically stacked cascade atlas.
+
+    moments_maps (B, C, S, S, 2) per env or (C, S, S, 2) shared;
+    shadow_mvps (B, C, 4, 4) or (C, 4, 4); cascade_dists (C,);
+    world_pos (B, H, W, 3), view_depth (B, H, W). Returns (B, H, W)."""
+    B = world_pos.shape[0]
+    if moments_maps.dim() == 4:
+        moments_maps = moments_maps[None].expand(B, *moments_maps.shape)
+    if shadow_mvps.dim() == 3:
+        shadow_mvps = shadow_mvps[None].expand(B, *shadow_mvps.shape)
+    n_casc = moments_maps.shape[1]
+    casc = select_cascade(view_depth, cascade_dists)          # (B, H, W)
+    p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
+    sps = (shadow_mvps[:, :, None, None] @ p[:, None, ..., None])[..., 0]
+    sp = torch.gather(sps, 1, casc[:, None, ..., None].expand(
+        B, 1, *casc.shape[1:], 4))[:, 0]                      # (B, H, W, 4)
+    w = sp[..., 3]
+    ok = w > 1e-3
+    ndc = sp[..., :3] / torch.where(ok, w, 1.0)[..., None]
+    uv = ndc[..., :2] * 0.5 + 0.5
+    d = ndc[..., 2] * 0.5 + 0.5
+
+    s = moments_maps.shape[2]
+    u = uv[..., 0] * (s - 1)
+    v = (1.0 - uv[..., 1]) * (s - 1)
+    atlas = moments_maps.reshape(B, n_casc * s, s, 2)
+    u = torch.clamp(u, 0.0, s - 1.001)
+    v = torch.clamp(v, 0.0, s - 1.001) + casc.float() * s
+    u0 = torch.floor(u).long()
+    v0 = torch.clamp(torch.floor(v).long(), max=n_casc * s - 2)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    right = torch.cat([atlas[:, :, 1:], atlas[:, :, -1:]], dim=2)
+    down = torch.cat([atlas[:, 1:], atlas[:, -1:]], dim=1)
+    down_r = torch.cat([down[:, :, 1:], down[:, :, -1:]], dim=2)
+    quad = torch.cat([atlas, right, down, down_r], dim=-1).reshape(B, -1, 8)
+    idx = (v0 * s + u0).reshape(B, -1, 1).expand(-1, -1, 8)
+    m4 = torch.gather(quad, 1, idx).reshape(*u.shape, 8)
+    a, b = m4[..., 0:2], m4[..., 2:4]
+    cc, dd = m4[..., 4:6], m4[..., 6:8]
+    m = (a * (1 - fu) + b * fu) * (1 - fv) + (cc * (1 - fu) + dd * fu) * fv
+    mu, m2 = m[..., 0], m[..., 1]
+    var = torch.clamp(m2 - mu * mu, min=1e-5)
+    diff = d - mu
+    cheb = var / (var + diff * diff)
+    p_lit = torch.where(diff <= 0, 1.0, cheb)
+    t = torch.clamp((p_lit - 0.15) / (0.95 - 0.15), 0.0, 1.0)
+    p_lit = t * t * (3 - 2 * t)
+    inb = ok & (uv[..., 0] >= 0) & (uv[..., 0] <= 1) \
+        & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
+    return torch.where(inb, p_lit, 1.0)
+
+
+def tonemap_reinhard(x):
+    """1 - exp(-x) variant (tonemap.glsl:4-7)."""
+    return 1.0 - torch.exp(-x)
+
+
+def tonemap_aces(x):
+    """ACES filmic approximation (tonemap.glsl:8-12, Narkowicz fit)."""
+    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+
+
+def oetf_srgb(x):
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.0031308, 12.92 * x,
+                       1.055 * torch.pow(x, 1 / 2.4) - 0.055)
+
+
+def oetf_pq(x, peak_nits=1000.0):
+    """SMPTE ST.2084 PQ (oetf.glsl HDR output path)."""
+    m1, m2 = 0.1593017578125, 78.84375
+    c1, c2, c3 = 0.8359375, 18.8515625, 18.6875
+    y = torch.clamp(x * peak_nits / 10000.0, 0.0, 1.0)
+    yp = torch.pow(y, m1)
+    return torch.pow((c1 + c2 * yp) / (1.0 + c3 * yp), m2)

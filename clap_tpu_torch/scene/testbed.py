@@ -1,0 +1,246 @@
+"""Benchmark testbed scene builder (counterpart of
+clap_tpu/scene/testbed.py; the ldjam56 "onehandclap" analogue).
+
+The scene is built on the host in numpy — procedural terrain
+(terrain.c:418-574), kinematic character capsules, dynamic spheres and
+instantiator-placed trees — and then moved to ``device``. The numbers are
+the JAX package's bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..bridge import tree_map
+from ..char.controller import CharParams
+from ..engine.state import (EngineState, EntityParams, SceneConfig,
+                            engine_state_init)
+from ..physics.heightfield import heightfield_from_terrain
+from ..physics.narrowphase import make_world
+from ..physics.world import BodyParams, capsule_auto_size, capsule_inertia_np
+from ..utils.frand import Rand48
+from .terrain import terrain_height_np, terrain_init_square_landscape
+
+
+class Testbed(NamedTuple):
+    cfg: SceneConfig
+    state0: EngineState     # unbatched template (replicate_state adds B)
+    terrain: object
+    chunks: list = None     # [(verts, normals, faces)] terrain chunks
+
+
+def chunk_terrain(t, grid: int = 4) -> list:
+    """Split the terrain mesh into grid² chunks by face centroid, each its
+    own entity so frustum culling and distance LOD apply per chunk."""
+    v = np.asarray(t.vx, np.float32)
+    n = np.asarray(t.norm, np.float32)
+    f = np.asarray(t.idx, np.int64).reshape(-1, 3)
+    cent = v[f].mean(axis=1)
+    x0, x1 = v[:, 0].min(), v[:, 0].max()
+    z0, z1 = v[:, 2].min(), v[:, 2].max()
+    ix = np.clip(((cent[:, 0] - x0) / max(x1 - x0, 1e-6) * grid)
+                 .astype(np.int64), 0, grid - 1)
+    iz = np.clip(((cent[:, 2] - z0) / max(z1 - z0, 1e-6) * grid)
+                 .astype(np.int64), 0, grid - 1)
+    cid = ix * grid + iz
+    out = []
+    for c in range(grid * grid):
+        fc = f[cid == c]
+        if len(fc) == 0:
+            continue
+        un, inv = np.unique(fc.reshape(-1), return_inverse=True)
+        out.append((v[un], n[un], inv.reshape(-1, 3).astype(np.uint32)))
+    return out
+
+
+def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
+                  n_dynamic: int = 8, max_entities: int = 64,
+                  char_aabb=(0.6, 2.0, 0.6), n_chars: int = 1,
+                  terrain_chunks: int = 0, device=None) -> Testbed:
+    """Build the scene on the host and move it to ``device``.
+
+    Entities: 0 = terrain, [1, 1+n_chars) = characters, then n_dynamic
+    spheres, then instantiator trees; ``terrain_chunks = G`` adds G×G
+    chunk entities (model ids 4..) and leaves entity 0 render-empty."""
+    f32 = np.float32
+    t = terrain_init_square_landscape(seed, -side / 2, 0.0, -side / 2,
+                                      side, nr_v)
+    world = make_world(heightfield_from_terrain(t, device))
+
+    n_bodies = n_chars + n_dynamic
+    active = np.zeros(n_bodies, bool)
+    kinematic = np.zeros(n_bodies, bool)
+    radius = np.zeros(n_bodies, f32)
+    half_len = np.zeros(n_bodies, f32)
+    yoffset = np.zeros(n_bodies, f32)
+    ray_off = np.zeros(n_bodies, f32)
+    mass = np.ones(n_bodies, f32)
+    bounce = np.zeros(n_bodies, f32)
+    bounce_vel = np.zeros(n_bodies, f32)
+    mu = np.ones(n_bodies, f32)
+
+    r, hl, yoff, roff = capsule_auto_size(*char_aabb)
+    for ci in range(n_chars):
+        active[ci] = kinematic[ci] = True
+        radius[ci], half_len[ci], yoffset[ci], ray_off[ci] = r, hl, yoff, roff
+        mass[ci] = 70.0
+
+    rng = Rand48(seed ^ 0x5EED)
+    dyn_pos = []
+    for i in range(n_dynamic):
+        bi = n_chars + i
+        br = 0.3 + 0.2 * rng.drand48()
+        bx = (rng.drand48() - 0.5) * side * 0.8
+        bz = (rng.drand48() - 0.5) * side * 0.8
+        active[bi] = True
+        radius[bi] = yoffset[bi] = ray_off[bi] = br
+        mass[bi] = 1.0 + rng.drand48()
+        bounce[bi] = 0.3
+        bounce_vel[bi] = 0.1
+        dyn_pos.append((bx, 4.0 + 3.0 * rng.drand48(), bz))
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    bodies = BodyParams(
+        active=dev(active), kinematic=dev(kinematic), radius=dev(radius),
+        half_len=dev(half_len), yoffset=dev(yoffset), ray_off=dev(ray_off),
+        mass=dev(mass), bounce=dev(bounce), bounce_vel=dev(bounce_vel),
+        mu=dev(mu), inertia=dev(capsule_inertia_np(mass, radius, half_len)))
+
+    char_params = CharParams(
+        body=dev(np.arange(n_chars, dtype=np.int32)),
+        lin_speed=dev(np.full(n_chars, char_aabb[1] * 1.2, f32)),
+        jump_forward=dev(np.full(n_chars, 1.2, f32)),
+        jump_upward=dev(np.full(n_chars, 5.0, f32)),
+        can_dash=dev(np.ones(n_chars, bool)),
+    )
+
+    E = max_entities
+    e_active = np.zeros(E, bool)
+    model_id = np.zeros(E, np.int32)
+    body = np.full(E, -1, np.int32)
+    body_is_char = np.zeros(E, bool)
+    skip = np.zeros(E, bool)
+    e_active[0] = skip[0] = True                     # terrain
+    for ci in range(n_chars):
+        e_active[1 + ci] = True
+        model_id[1 + ci] = 1
+        body[1 + ci] = ci
+        body_is_char[1 + ci] = True
+    for i in range(n_dynamic):
+        ei = 1 + n_chars + i
+        e_active[ei] = True
+        model_id[ei] = 2
+        body[ei] = n_chars + i
+    tree_pos = []
+    next_ei = 1 + n_chars + n_dynamic
+    # reserve entity slots for the terrain chunks
+    tree_cap = E - terrain_chunks * terrain_chunks
+    for _name, dx, dy, dz in t.instantiators:
+        ei = next_ei
+        if ei >= tree_cap:
+            break
+        e_active[ei] = True
+        model_id[ei] = 3
+        tree_pos.append((ei, (dx, dy, dz)))
+        next_ei += 1
+
+    aabb_rows = [
+        [[-side / 2, -10, -side / 2], [side / 2, 10, side / 2]],  # terrain
+        [[-0.3, 0.0, -0.3], [0.3, 2.0, 0.3]],                     # character
+        [[-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]],                    # sphere
+        [[-0.5, 0.0, -0.5], [0.5, 3.0, 0.5]],                     # tree
+    ]
+    chunks = None
+    if terrain_chunks:
+        chunks = chunk_terrain(t, terrain_chunks)
+        kept = []
+        for c, (cv, _cn, _cf) in enumerate(chunks):
+            ei = next_ei
+            if ei >= E:
+                break            # capacity bound: drop remaining chunks
+            e_active[ei] = True
+            model_id[ei] = 4 + c
+            aabb_rows.append([cv.min(0).tolist(), cv.max(0).tolist()])
+            kept.append(chunks[c])
+            next_ei += 1
+        chunks = kept
+
+    ent = EntityParams(
+        active=dev(e_active), model_id=dev(model_id), body=dev(body),
+        body_is_char=dev(body_is_char), yoffset=dev(np.zeros(E, f32)),
+        parent=dev(np.full(E, -1, np.int32)), skip_culling=dev(skip))
+    cfg = SceneConfig(
+        world=world, bodies=bodies, entities=ent, char_params=char_params,
+        model_aabb=dev(np.array(aabb_rows, f32)),
+        limbo_height=dev(np.float32(40.0)), gravity_y=dev(np.float32(-9.8)))
+
+    st = engine_state_init(E, n_bodies, n_chars)      # host, then moved
+    for ci in range(n_chars):
+        cx = 3.0 * ci
+        cy = float(terrain_height_np(t, cx, 0.0))
+        st.phys.pos[ci] = torch.tensor(np.array([cx, cy + yoff, 0.0], f32))
+    for i, p in enumerate(dyn_pos):
+        st.phys.pos[n_chars + i] = torch.tensor(np.array(p, f32))
+    st = st._replace(visible=torch.as_tensor(e_active.copy()))
+    for ei, (dx, dy, dz) in tree_pos:
+        st.pos[ei] = torch.tensor(np.array([dx, dy, dz], f32))
+    st = tree_map(lambda x: x.to(device), st)
+    return Testbed(cfg=cfg, state0=st, terrain=t, chunks=chunks)
+
+
+def testbed_models(tb: Testbed, with_lods: bool = True,
+                   terrain_color=(0.35, 0.5, 0.3),
+                   skinned_chars: bool = False, textured: bool = False):
+    """ModelData list matching the testbed's model-id layout: 0 terrain
+    (empty when chunked), 1 character (rigid cube proxy), 2 sphere, 3
+    tree, then one model per terrain chunk with LOD chains."""
+    from ..render.scenerender import ModelData, model_from_mesh
+    from .primitives import cube
+
+    if skinned_chars:
+        raise NotImplementedError("skinned characters (charskin)")
+    if textured:
+        raise NotImplementedError("textured models (_surface_gather)")
+    t = tb.terrain
+    cv, cn, _cu, cf = cube(1.0)
+    cv = np.asarray(cv, np.float32)
+    cn = np.asarray(cn, np.float32)
+    cf = np.asarray(cf)
+
+    def cube_model(w, h, color):
+        v = cv * np.array([w, h, w], np.float32) \
+            + np.array([0, h / 2, 0], np.float32)
+        return model_from_mesh(v, cn, cf, base_color=color,
+                               with_lods=with_lods)
+
+    if tb.chunks:
+        z3 = np.zeros((0, 3), np.float32)
+        terrain_model = ModelData(
+            verts=z3, normals=z3, base_color=z3,
+            rough_metal=np.zeros((0, 2), np.float32), emission=z3,
+            lod_faces=[np.zeros((0, 3), np.uint32)])
+    else:
+        terrain_model = model_from_mesh(
+            t.vx, t.norm, t.idx.reshape(-1, 3),
+            base_color=terrain_color, with_lods=False)
+    models = [
+        terrain_model,
+        cube_model(0.6, 2.0, (0.8, 0.5, 0.4)),
+        cube_model(0.8, 0.8, (0.6, 0.6, 0.7)),
+        cube_model(0.8, 3.0, (0.4, 0.3, 0.2)),
+    ]
+    for cvv, cnn, cff in (tb.chunks or []):
+        models.append(model_from_mesh(cvv, cnn, cff,
+                                      base_color=terrain_color,
+                                      with_lods=with_lods))
+    return models
+
+
+def replicate_state(st: EngineState, n_envs: int) -> EngineState:
+    """Broadcast one initial state to an env batch (contiguous copies)."""
+    return tree_map(
+        lambda x: x.expand(n_envs, *x.shape).contiguous(), st)

@@ -1,0 +1,107 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py),
+plus the bridge's own round-trip tests.
+
+Inputs are made from a seed with numpy and handed to both packages; JAX
+stays on the CPU (tests/conftest.py) and runs its Pallas kernels in
+interpret mode, as the JAX package's own tests do. Other test files import
+these helpers (``from test_torch_common import ...``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from clap_tpu_torch.bridge import from_numpy, to_numpy
+
+# xdist runs several workers on a few cores: one torch thread each
+torch.set_num_threads(1)
+
+# the entry() scene (__graft_entry__.py:17-37) and the composed testbed cut
+# to test size (bench.py:544-545 shape: 2 chars, chunked terrain)
+ENTRY_SCENE = dict(seed=7, side=32.0, nr_v=32, n_dynamic=4, max_entities=32)
+COMPOSED_SCENE = dict(seed=7, side=32.0, nr_v=32, n_dynamic=4,
+                      max_entities=32, n_chars=2, terrain_chunks=2)
+
+
+def jnp_tree(tree):
+    """JAX-package tree → the same tree with numpy leaves."""
+    return jax.tree.map(np.asarray, tree)
+
+
+def to_port(tree, device=None):
+    """JAX-package tree → the port's tree of the same type name."""
+    return from_numpy(jnp_tree(tree), device)
+
+
+def assert_tree_close(ref, got, atol=1e-4, rtol=1e-4, path="tree"):
+    """Field-by-field comparison of a JAX-package tree (numpy leaves) and
+    a port tree: int/bool leaves exact, float leaves within atol + rtol."""
+    if ref is None:
+        assert got is None, path
+        return
+    if hasattr(ref, "_fields"):
+        assert tuple(ref._fields) == tuple(got._fields), path
+        for f, a, b in zip(ref._fields, ref, got):
+            assert_tree_close(a, b, atol, rtol, f"{path}.{f}")
+        return
+    a = np.asarray(ref)
+    b = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    assert a.shape == b.shape, (path, a.shape, b.shape)
+    if a.dtype.kind in "biu":
+        np.testing.assert_array_equal(b, a, err_msg=path)
+    else:
+        np.testing.assert_allclose(b, a, atol=atol, rtol=rtol, err_msg=path)
+
+
+def assert_tree_equal(ref, got, path="tree"):
+    """Bit-exact field-by-field comparison (values and dtypes)."""
+    if ref is None:
+        assert got is None, path
+        return
+    if hasattr(ref, "_fields"):
+        assert tuple(ref._fields) == tuple(got._fields), path
+        for f, a, b in zip(ref._fields, ref, got):
+            assert_tree_equal(a, b, f"{path}.{f}")
+        return
+    a = np.asarray(ref)
+    b = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    assert a.dtype == b.dtype, (path, a.dtype, b.dtype)
+    assert a.shape == b.shape, (path, a.shape, b.shape)
+    assert np.array_equal(a, b), path
+
+
+def psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return 10.0 * np.log10(1.0 / max(mse, 1e-12))
+
+
+# ---------------------------------------------------------------------------
+# the bridge itself
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def entry_testbed():
+    from clap_tpu.scene.testbed import build_testbed
+
+    return build_testbed(**ENTRY_SCENE)
+
+
+@pytest.mark.parametrize("part", ["cfg", "state0"])
+def test_bridge_round_trip(entry_testbed, part):
+    """JAX tree → port tree → numpy reproduces every leaf bit for bit."""
+    ref = jnp_tree(getattr(entry_testbed, part))
+    assert_tree_equal(ref, to_numpy(from_numpy(ref)))
+
+
+def test_bridge_rejects_unknown_types():
+    from typing import NamedTuple
+
+    class NotPorted(NamedTuple):
+        x: np.ndarray
+
+    with pytest.raises(TypeError):
+        from_numpy(NotPorted(x=np.zeros(2)))

@@ -1,0 +1,57 @@
+"""The PyTorch port imports no JAX, and its kernel wrappers take their
+plain versions only because the tensors they get lie on the CPU."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import clap_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(clap_tpu_torch.__path__,
+                                                 'clap_tpu_torch.')]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')
+             or k == 'clap_tpu' or k.startswith('clap_tpu.'))
+print(len(names), bad)
+assert not bad, bad
+assert 'jax' not in sys.modules
+"""
+
+
+def test_port_imports_no_jax():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    n, bad = r.stdout.strip().split(" ", 1)
+    assert int(n) >= 25 and bad == "[]"
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|clap_tpu)\b", src,
+                         re.MULTILINE)
+
+
+def test_kernel_wrappers_count_only_kernel_launches():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch."""
+    from clap_tpu_torch.render import raster as R
+
+    counts = torch.zeros((1, 1, 2), dtype=torch.int32)
+    trec = torch.zeros((1, 1, 32, R.NCOEF))
+    brec = torch.zeros((1, 32, R.NCOEF))
+    before = R.raster_tile.launches
+    depth, tid, d0, d1, s = R.raster_tile(counts, trec, brec, 128, 8, 8,
+                                          128, 1, 32)
+    assert R.raster_tile.launches == before
+    assert torch.isinf(depth).all() and (tid == -1).all()
+    d = R.raster_depth(counts, torch.zeros((1, 1, 32, R.NCOEF_DEPTH)),
+                       torch.zeros((1, 32, R.NCOEF_DEPTH)), 128, 8, 8, 128,
+                       1, 32)
+    assert torch.isinf(d).all()
