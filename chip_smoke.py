@@ -7,8 +7,9 @@ Phases, one or more lines each:
 
 1. device — the card's name and power limit (nvidia-smi), torch / CUDA /
    nvcc versions; TF32 off and float32 matmul precision "highest".
-2. build — nvcc compiles clap_tpu_torch/csrc/raster.cu (sm_90a) into
-   clap_tpu_torch/_build/; prints the seconds and ptxas' register lines.
+2. build — nvcc compiles clap_tpu_torch/csrc/raster.cu and ca2d.cu
+   (sm_90a, one nvcc each, started together) into clap_tpu_torch/_build/;
+   prints the seconds and ptxas' register lines.
 3. parity — K1 (raster_tile) and K2 (raster_depth) against their plain
    PyTorch versions on the same inputs: the kernel-parity scene at 128²,
    then the slice's own first-frame records (env 0's G-buffer records, its
@@ -17,12 +18,22 @@ Phases, one or more lines each:
    on ≥ 99.5% of pixels).
 4. headless — engine_step at 4,096 envs on the headline testbed scene:
    1 warm-up + 30 timed frames, ms/frame and env-steps/s.
-5. slice — step_and_render at 64 envs × 256² (engine_step with camera
-   occlusion, cluster-record assembly, the composed frame with the baked
-   static shadow): 1 warm-up + 10 timed frames, ms/frame, env-fps, peak
-   memory, clusters/tiles at capacity, each kernel timed alone next to its
-   plain version, launch counts of the driven run, and an end-to-end check
-   of two envs' images against the plain CPU path.
+5. slice — step_and_render at 64 envs × 256² (game_step with the game
+   config and demo rig of bench.py:546-559 — engine step with camera
+   occlusion, switch rules, rig animation — then cluster-record assembly
+   and the composed frame with the baked static shadow): 1 warm-up + 10
+   timed frames, ms/frame, env-fps, peak memory, clusters/tiles at
+   capacity, each kernel timed alone next to its plain version, launch
+   counts of the driven run, and an end-to-end check of two envs' images
+   against the plain CPU path.
+6. CA — K3 (ca2d_run_fused) bit-exact against its plain version ca2d_run
+   for 5 rules × 4 shapes; the CA path driven (the JAX bench's config #1:
+   one 256² CA_TEST grid × 1,000 generations, then 1,024 × 256² × 100);
+   both timed against the plain version (CUDA events); a 512² grid must
+   raise; cave_scene(48³, rule 2, 8 steps) on the card equals the CPU run.
+7. skinning — the JAX bench's config #3 (1,024 instances, 64 joints,
+   4,096 verts): pose sampling, joint matrices and batched LBS, ms per
+   call and skinned verts/s; four instances against the CPU path (1e-4).
 
 Then a JSON line of the kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
@@ -58,8 +69,12 @@ def main() -> int:
 
     from clap_tpu_torch import cuda_build
     from clap_tpu_torch import mathx as mx
+    from clap_tpu_torch.anim.system import anim_instances_init
     from clap_tpu_torch.bridge import tree_map
     from clap_tpu_torch.engine.frame import SceneRenderer, step_and_render
+    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
+    from clap_tpu_torch.engine.gamelogic import (game_config_empty,
+                                                 game_state_init)
     from clap_tpu_torch.engine.step import engine_step, inputs_zero
     from clap_tpu_torch.render import raster as R
     from clap_tpu_torch.render.lights import lights_empty
@@ -97,13 +112,15 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    cuda_build.load_raster_lib()
-    info = cuda_build.build_info
-    log(f"phase 2 build: raster.cu -> {info['path'].name} in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s)")
-    for line in cuda_build.build_info["log"].splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    cuda_build.build_all()
+    log(f"phase 2 build: {len(cuda_build.build_info)} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, info in cuda_build.build_info.items():
+        log(f"phase 2 build: {name}.cu -> {info['path'].name} (nvcc "
+            f"{info['seconds']:.1f} s)")
+        for line in info["log"].splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     # ------------------------------------------------- kernel comparison
     def cmp_tile(k, r):
@@ -210,11 +227,23 @@ def main() -> int:
     opts = RenderOptions(width=RES, height=RES, shadow_size=256,
                          film_grain=0.0, record_compact=8192,
                          raster_cap=2048, kernel_attrs=True)
-    st = tbm.replicate_state(tb.state0, N_SLICE)
+    # the game wiring of bench.py:546-559: the terrain is a permanent
+    # switch, both characters animate on the demo rig
+    sk, lib, acfg = tbm.build_demo_rig(device=dev)
+    gcfg = game_config_empty(1, 96, device=dev)._replace(
+        switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
+        switch_valid=torch.tensor([True], device=dev),
+        switch_permanent=torch.tensor([True], device=dev))
+    gw = GameWorld(scene=tb.cfg, game=gcfg, anim=acfg, anim_sk=sk,
+                   anim_lib=lib)
+    gs = tbm.replicate_state(GameSessionState(
+        engine=tb.state0, game=game_state_init(1, 2, device=dev),
+        anim=anim_instances_init(2, device=dev),
+        joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), N_SLICE)
     ins = tree_map(lambda x: x.expand(N_SLICE, *x.shape).clone(),
                    inputs_zero(2, device=dev))
     ins.motion[:, 0, 0] = 1.0
-    frame0 = st.frame.clone()
+    frame0 = gs.engine.frame.clone()
     torch.cuda.reset_peak_memory_stats()
 
     # the driven run: launch counts start here
@@ -225,20 +254,25 @@ def main() -> int:
                                 shadow_size=1024, far=200.0)
     renderer = SceneRenderer(rt, lights, opts, skip_culling=ent.skip_culling,
                              static_shadow=static, lod_scale=RES / 720.0)
-    st, imgs = step_and_render(tb.cfg, renderer, st, ins)
+    gs, imgs = step_and_render(gw, renderer, gs, ins)
     sync()
     warm = time.perf_counter() - t0
-    st1 = st
+    st1 = gs.engine
     t0 = time.perf_counter()
     for _ in range(10):
-        st, imgs = step_and_render(tb.cfg, renderer, st, ins)
+        gs, imgs = step_and_render(gw, renderer, gs, ins)
     sync()
     dt = (time.perf_counter() - t0) / 10
     launches = {"raster_tile": R.raster_tile.launches,
                 "raster_depth": R.raster_depth.launches}
     peak = torch.cuda.max_memory_allocated()
+    st = gs.engine
 
     require(bool(((st.frame - frame0) == 11).all()), "frame counter +11")
+    require(bool((gs.anim.queue.clip[..., 0] >= 0).all()),
+            "every rig plays an animation clip")
+    require(bool(torch.isfinite(gs.joint_mats).all()),
+            "joint matrices finite")
     require(bool(torch.isfinite(imgs).all()), "images finite")
     std = imgs.reshape(N_SLICE, -1).std(dim=1)
     luma = imgs.reshape(N_SLICE, -1).mean(dim=1)
@@ -260,7 +294,10 @@ def main() -> int:
         f"{stats['tiles_at_cap']}/{stats['n_tiles']} (max "
         f"{stats['max_per_tile']} of {stats['cap']} records), image std "
         f"min {float(std.min()):.4f}, mean luma {float(luma.min()):.4f}.."
-        f"{float(luma.max()):.4f} ({smi})")
+        f"{float(luma.max()):.4f}, switch on in "
+        f"{int(gs.game.switch_on[:, 0].sum())}/{N_SLICE} envs, clips "
+        f"{sorted(set(gs.anim.queue.clip[..., 0].flatten().tolist()))} "
+        f"({smi})")
     log(f"phase 5 launches in the driven run: {launches}")
 
     # ---------------------------------------------------------------- 3b
@@ -327,6 +364,15 @@ def main() -> int:
         f"{psnr[0]:.1f} / {psnr[1]:.1f} dB")
     require(min(psnr) >= 35.0, "end-to-end PSNR >= 35 dB")
 
+    del gs, imgs, renderer, cpu_renderer, ref, st, st1, geom, rec, binned
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 6
+    ca = run_ca_phase(dev, smi, time_ms, require)
+
+    # ---------------------------------------------------------------- 7
+    run_skinning_phase(dev, smi, require)
+
     src = "clap_tpu_torch/csrc/raster.cu"
     log(json.dumps({"kernels": [
         {"name": "raster_tile", "route": "cuda", "source": src,
@@ -337,12 +383,178 @@ def main() -> int:
          "replaces": "clap_tpu/render/raster.py:633",
          "launches": launches["raster_depth"], "max_abs_err": depth_err,
          "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "ca2d_run_fused", "route": "cuda",
+         "source": "clap_tpu_torch/csrc/ca2d.cu",
+         "replaces": "clap_tpu/ops/ca2d.py:192",
+         "launches": ca["launches"], "max_abs_err": ca["max_abs_err"],
+         "ms": ca["ms"], "plain_ms": ca["plain_ms"]},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_ca_phase(dev, smi, time_ms, require):
+    """Phase 6: K3 against its plain version, the CA path driven and
+    timed, the one-block limit, and cave_scene on the card vs the CPU."""
+    import torch
+
+    from clap_tpu_torch.ops import ca2d as CA
+    from clap_tpu_torch.scene.voxel import cave_scene
+
+    sync = torch.cuda.synchronize
+    vn1 = CA.CARule("vn1 test", born_mask=0b0110, surv_mask=0b1100,
+                    nr_states=3, decay=True, neigh="vn1")
+    vnv = CA.CARule("vnv test", born_mask=0b0011, surv_mask=0b0101,
+                    nr_states=7, decay=True, neigh="vnv")
+    shapes = [((1, 64, 64), 32), ((3, 96, 160), 17), ((2, 37, 53), 9),
+              ((1, 256, 256), 1000)]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err = 0
+    for rule in (CA.CA_TEST, CA.CA_COOL_TREE, CA.CA_ASH_PINUS, vn1, vnv):
+        exact = []
+        for shape, steps in shapes:
+            g = torch.randint(0, rule.nr_states + 1, shape, generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.uint8)
+            k = CA.ca2d_run_fused(rule, g, steps)
+            sync()
+            r = CA.ca2d_run(rule, g, steps)
+            max_err = max(max_err, int((k.int() - r.int()).abs().max()))
+            exact.append(bool(torch.equal(k, r)))
+        log(f"phase 6 parity {rule.name} ({rule.neigh}): K3 bit-exact "
+            f"against ca2d_run for {exact} at "
+            f"{[f'{s[0]}x{s[1]}x{s[2]}x{n}' for s, n in shapes]}")
+        require(all(exact), f"K3 bit-exact for rule {rule.name}")
+
+    # the driven CA path: counts start here
+    CA.ca2d_run_fused.launches = 0
+    g1 = CA.ca2d_seed(CA.CA_TEST, (256, 256), generator=gen, device=dev)
+    out1 = CA.ca2d_run_fused(CA.CA_TEST, g1, 1000)          # config #1
+    gb = CA.ca2d_seed(CA.CA_TEST, (1024, 256, 256), generator=gen,
+                      device=dev)
+    outb = CA.ca2d_run_fused(CA.CA_TEST, gb, 100)
+    sync()
+    launches = CA.ca2d_run_fused.launches
+    require(launches > 0, "K3 launched on the CA path")
+    require(torch.equal(out1, CA.ca2d_run(CA.CA_TEST, g1, 1000)),
+            "config #1 grid equals the plain version")
+    require(torch.equal(outb[:4], CA.ca2d_run(CA.CA_TEST, gb[:4], 100)),
+            "batched grids equal the plain version")
+    live = float((outb != 0).float().mean())
+    require(0.0 < live < 1.0, "the batched grids stay alive and not full")
+
+    ms = time_ms(CA.ca2d_run_fused, (CA.CA_TEST, g1, 1000), 5)
+    plain_ms = time_ms(CA.ca2d_run, (CA.CA_TEST, g1, 1000), 2)
+    log(f"phase 6 CA config #1 (1 x 256^2 CA_TEST x 1000 generations): K3 "
+        f"{ms:.3f} ms ({256 * 256 * 1000 / ms * 1e3:.4g} cell-steps/s) vs "
+        f"plain {plain_ms:.3f} ms ({256 * 256 * 1000 / plain_ms * 1e3:.4g} "
+        f"cell-steps/s) ({smi})")
+    cells = 1024 * 256 * 256 * 100
+    before = CA.ca2d_run_fused.launches
+    ms_b = time_ms(CA.ca2d_run_fused, (CA.CA_TEST, gb, 100), 5)
+    per_call = (CA.ca2d_run_fused.launches - before) / 6
+    plain_b = time_ms(CA.ca2d_run, (CA.CA_TEST, gb, 100), 1)
+    log(f"phase 6 CA batched (1024 x 256^2 = 64 MiB, 100 generations): K3 "
+        f"{ms_b:.3f} ms ({cells / ms_b * 1e3:.4g} cell-steps/s, "
+        f"{per_call:.0f} launch per call) vs plain {plain_b:.3f} ms "
+        f"({cells / plain_b * 1e3:.4g} cell-steps/s); live cells "
+        f"{live:.3f} ({smi})")
+    log(f"phase 6 launches in the driven CA run: ca2d_run_fused {launches}")
+
+    try:
+        CA.ca2d_run_fused(CA.CA_TEST, torch.zeros(
+            (1, 512, 512), dtype=torch.uint8, device=dev), 1)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise RuntimeError("check failed: a 512^2 grid did not raise")
+    require("shared memory" in msg, "the 512^2 refusal names the limit")
+    log(f"phase 6 limit: 512^2 raises ValueError: {msg}")
+
+    t0 = time.perf_counter()
+    a = cave_scene(48, 48, 48, seed=5, ca_rule=2, ca_steps=8, device=dev)
+    b = cave_scene(48, 48, 48, seed=5, ca_rule=2, ca_steps=8, device="cpu")
+    same = all(x.shape == y.shape and bool((x == y).all())
+               for x, y in zip(a, b))
+    log(f"phase 6 cave_scene 48^3 rule 2 x 8: card == CPU {same}; "
+        f"{int((a[0] != 0).sum())} solid cells, {a[3].shape[0]} faces "
+        f"({time.perf_counter() - t0:.1f} s for both)")
+    require(same and a[3].shape[0] > 0, "cave_scene on the card equals CPU")
+    return {"launches": launches, "max_abs_err": float(max_err), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def run_skinning_phase(dev, smi, require, n_inst=1024, n_joints=64,
+                       n_verts=4096):
+    """Phase 7: the JAX bench's config #3 (bench.py:75-136) on the card,
+    its rig built as bench.py:88-115 builds it; four instances against the
+    CPU path."""
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch.anim.clips import (PATH_ROTATION, PATH_TRANSLATION,
+                                           build_library, sample_pose)
+    from clap_tpu_torch.anim.joints import build_skeleton, joint_matrices
+    from clap_tpu_torch.anim.skin import skin_verts_batch
+    from clap_tpu_torch.bridge import tree_map
+
+    rng = np.random.default_rng(0)
+    parent = [-1] + [(i - 1) // 2 for i in range(1, n_joints)]
+    invbind = np.tile(np.eye(4, dtype=np.float32), (n_joints, 1, 1))
+    base_t = rng.standard_normal((n_joints, 3)).astype(np.float32) * 0.1
+    base_r = np.tile(np.array([0, 0, 0, 1], np.float32), (n_joints, 1))
+    base_s = np.ones((n_joints, 3), np.float32)
+    sk = build_skeleton(parent, invbind, base_t, base_r, base_s)
+    keys = np.linspace(0, 2.0, 16)
+
+    def qr():
+        q = rng.standard_normal((16, 4)).astype(np.float32)
+        return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+    clip = []
+    for j in range(n_joints):
+        clip.append((j, PATH_ROTATION, keys, qr()))
+        clip.append((j, PATH_TRANSLATION, keys,
+                     rng.standard_normal((16, 3)).astype(np.float32) * 0.05))
+    lib = build_library([clip], n_joints)
+    verts = torch.as_tensor(rng.standard_normal((n_verts, 3)),
+                            dtype=torch.float32)
+    normals = verts / torch.linalg.vector_norm(verts, dim=-1, keepdim=True)
+    w = rng.random((n_verts, 4)).astype(np.float32)
+    w /= w.sum(-1, keepdims=True)
+    mesh = (verts, normals, torch.as_tensor(w),
+            torch.as_tensor(rng.integers(0, n_joints, (n_verts, 4)),
+                            dtype=torch.int32))
+
+    def pose_and_skin(sk, lib, mesh, ts):
+        clips = torch.zeros(ts.shape, dtype=torch.long, device=ts.device)
+        jts = joint_matrices(sk, sample_pose(lib, sk.base, clips, ts))
+        return skin_verts_batch(jts, *mesh)[0]
+
+    def to_dev(t):
+        return tree_map(lambda x: x.to(dev), t)
+
+    dsk, dlib, dmesh = to_dev(sk), to_dev(lib), to_dev(mesh)
+    ts = torch.linspace(0.0, 2.0, n_inst)
+    dts = ts.to(dev)
+    out = pose_and_skin(dsk, dlib, dmesh, dts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        out = pose_and_skin(dsk, dlib, dmesh, dts)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 10
+    pick = torch.tensor([0, n_inst // 3, 2 * n_inst // 3, n_inst - 1])
+    ref = pose_and_skin(sk, lib, mesh, ts[pick])
+    err = float((out[pick.to(dev)].cpu() - ref).abs().max())
+    log(f"phase 7 skinning: {n_inst} instances x {n_joints} joints x "
+        f"{n_verts} verts, {dt * 1e3:.3f} ms/call, "
+        f"{n_inst * n_verts / dt:.4g} skinned verts/s; instances "
+        f"{pick.tolist()} vs the CPU path max abs err {err:.3g} ({smi})")
+    require(bool(torch.isfinite(out).all()), "skinned verts finite")
+    require(err <= 1e-4, "skinning within 1e-4 of the CPU path")
 
 
 if __name__ == "__main__":

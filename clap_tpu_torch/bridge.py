@@ -14,9 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .anim.clips import AnimLibrary, Pose
+from .anim.joints import Skeleton
+from .anim.queue import AnimQueue
+from .anim.system import AnimConfig, AnimInstance, AnimSfx
 from .char.controller import CharParams, CharState
+from .engine.game import GameSessionState, GameWorld
+from .engine.gamelogic import GameConfig, GameState
 from .engine.state import CameraState, EngineState, EntityParams, SceneConfig
 from .engine.step import Inputs
+from .ops.particles import ParticleParams
 from .physics.heightfield import Heightfield
 from .physics.narrowphase import StaticWorld
 from .physics.world import BodyParams, PhysState
@@ -26,10 +33,12 @@ from .render.scenerender import RenderTables
 _TYPES = {cls.__name__: cls for cls in (
     SceneConfig, EngineState, EntityParams, CameraState, StaticWorld,
     Heightfield, BodyParams, PhysState, CharParams, CharState, Inputs,
-    RenderTables, Lights)}
+    RenderTables, Lights, AnimLibrary, Pose, Skeleton, AnimQueue,
+    AnimConfig, AnimInstance, AnimSfx, GameConfig, GameState, ParticleParams,
+    GameWorld, GameSessionState)}
 
 # host-side (trace-time) flags that stay Python bools in the port
-_PY_BOOL_FIELDS = {"any_material", "flat_eligible"}
+_PY_BOOL_FIELDS = {"any_material", "flat_eligible", "camera_occlusion"}
 
 
 def _is_namedtuple(x) -> bool:

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into a shared library with a plain C
+Each source compiles with nvcc into its own shared library with a plain C
 interface, loaded through ctypes — no PyTorch headers, ninja or pybind.
 The library goes to ``clap_tpu_torch/_build/`` (ignored by git), keyed by
-a hash of the source and the flags, at first use; a failed build raises.
+a hash of its source and the flags, at first use; a failed build raises.
+``build_all`` starts one nvcc per source at once and waits for them all.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -17,13 +18,34 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-RASTER_SRC = _PKG / "csrc" / "raster.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v"]
 
-_RASTER = None
-build_info = {}   # the last build(): {"path", "seconds" (0 when cached),
+
+def _bind_raster(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.raster_tile_launch.argtypes = [P] * 8 + [I] * 11 + [P]
+    lib.raster_tile_launch.restype = I
+    lib.raster_depth_launch.argtypes = [P] * 4 + [I] * 11 + [P]
+    lib.raster_depth_launch.restype = I
+
+
+def _bind_ca2d(lib):
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.ca2d_launch.argtypes = [P, P, I, I, I, I, U, U, I, I, I, P]
+    lib.ca2d_launch.restype = I
+    lib.ca2d_smem_bytes.argtypes = [I, I]
+    lib.ca2d_smem_bytes.restype = ctypes.c_longlong
+    lib.ca2d_smem_limit.argtypes = [I]
+    lib.ca2d_smem_limit.restype = I
+
+
+# source name -> its ctypes signatures
+SOURCES = {"raster": _bind_raster, "ca2d": _bind_ca2d}
+
+_LIBS = {}
+build_info = {}   # per source name: {"path", "seconds" (0 when cached),
                   # "log" (nvcc/ptxas output)}
 
 
@@ -34,39 +56,49 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
-def build(src: Path = RASTER_SRC) -> Path:
-    """Compile ``src`` into BUILD_DIR unless a library built from the same
-    source and flags exists; returns the library path."""
+def _target(name: str):
+    src = _PKG / "csrc" / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}_{digest}.so"
-    if out.exists():
-        build_info.update(path=out, seconds=0.0, log="(cached)")
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name} (rc {r.returncode}):\n"
-                           f"{r.stdout}\n{r.stderr}")
-    os.replace(tmp, out)
-    build_info.update(path=out, seconds=time.perf_counter() - t0,
-                      log=(r.stdout + r.stderr).strip())
-    return out
+    return src, BUILD_DIR / f"{name}_{digest}.so"
 
 
-def load_raster_lib():
-    """The raster kernels' library with its ctypes signatures."""
-    global _RASTER
-    if _RASTER is not None:
-        return _RASTER
-    lib = ctypes.CDLL(str(build(RASTER_SRC)))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.raster_tile_launch.argtypes = [P] * 8 + [I] * 11 + [P]
-    lib.raster_tile_launch.restype = I
-    lib.raster_depth_launch.argtypes = [P] * 4 + [I] * 11 + [P]
-    lib.raster_depth_launch.restype = I
-    _RASTER = lib
+def build_all(names=tuple(SOURCES)) -> dict:
+    """Compile every named source whose library (same source and flags) is
+    not built yet, one nvcc process each, all started together; returns
+    {name: library path}."""
+    procs = {}
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            build_info[name] = dict(path=out, seconds=0.0, log="(cached)")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out, time.perf_counter())
+    failed = []
+    for name, (p, tmp, out, t0) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (rc {p.returncode}):"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, out)
+        build_info[name] = dict(path=out, seconds=time.perf_counter() - t0,
+                                log=log.strip())
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: build_info[name]["path"] for name in names}
+
+
+def load_lib(name: str):
+    """The library built from csrc/<name>.cu, with its ctypes signatures."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        SOURCES[name](lib)
+        _LIBS[name] = lib
     return lib

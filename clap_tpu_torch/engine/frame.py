@@ -1,10 +1,11 @@
 """The composed step-and-render frame (counterpart of the closure in
-bench.py ``bench_step_and_render``, with ``engine_step`` in place of the
-game layer and the characters as rigid cube proxies).
+bench.py ``bench_step_and_render``, with the characters as rigid cube
+proxies).
 
-One frame, for every env of a batched EngineState:
+One frame, for every env of a batched GameSessionState:
 
-1. ``engine_step`` with the camera occlusion shrink;
+1. ``game_step`` (engine step with the camera occlusion shrink, game
+   rules, rig animation, particles);
 2. per-env views (``camera_view_proj``) and frustum planes
    (``make_subview``);
 3. ``assemble_cluster_records_batch`` (cull, LOD, compaction, clip
@@ -30,8 +31,9 @@ from ..render.scenerender import (RenderTables,
                                   assemble_cluster_records_batch,
                                   kernel_attrs_ok)
 from ..render.view import make_subview
-from .state import EngineState, SceneConfig
-from .step import Inputs, engine_step
+from .game import GameSessionState, GameWorld, game_step
+from .state import EngineState
+from .step import Inputs
 
 
 class SceneRenderer(nn.Module):
@@ -110,10 +112,10 @@ class SceneRenderer(nn.Module):
             far=self.far, static_shadow=self.static_shadow)
 
 
-def step_and_render(cfg: SceneConfig, renderer: SceneRenderer,
-                    st: EngineState, inputs: Inputs):
-    """One composed frame: the batched engine step (camera occlusion on),
-    then the render of every env. Returns (new state, images
-    (B, H, W, 3))."""
-    st = engine_step(cfg, st, inputs, camera_occlusion=True)
-    return st, renderer(st)
+def step_and_render(gw: GameWorld, renderer: SceneRenderer,
+                    gs: GameSessionState, inputs: Inputs):
+    """One composed frame: the batched game step (camera occlusion as
+    ``gw`` sets it, on by default), then the render of every env's engine
+    state. Returns (new state, images (B, H, W, 3))."""
+    gs = game_step(gw, gs, inputs)
+    return gs, renderer(gs.engine)

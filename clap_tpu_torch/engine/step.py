@@ -145,11 +145,18 @@ def _scene_update(cfg: SceneConfig, st: EngineState):
 
 
 def _camera_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
+                   control=None, head_target=None,
                    camera_occlusion: bool = False):
     """Orbit camera (camera.c:208-246): pitch-clamped quat orbit around
-    the slot-0 character, with the near-plane occlusion shrink when
+    the followed character, with the near-plane occlusion shrink when
     ``camera_occlusion``. The state keeps the DESIRED distance; only the
-    eye position shrinks."""
+    eye position shrinks.
+
+    ``control`` ((B,) int32, optional) retargets the orbit onto the
+    roster-controlled character slot (scene_control_next scene.c:23-55);
+    None follows slot 0. ``head_target`` ((B, C, 3) pos, (B, C) valid,
+    optional): a valid head of the followed character becomes the target
+    (camera_target camera.c:174-206, the rig's JOINT_HEAD)."""
     from ..render.camera import camera_update, orbit_quat
 
     cam = st.camera
@@ -158,9 +165,22 @@ def _camera_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
     yaw = torch.remainder(cam.yaw + d[:, 1] + math.pi, 2 * math.pi) \
         - math.pi
     dist = torch.clamp(cam.dist + d[:, 2], 1.0, 50.0)
-    b0 = int(cfg.char_params.body[0]) if cfg.char_params.body.shape[0] \
-        else 0
-    target = st.phys.pos[:, b0]
+    n_chars = cfg.char_params.body.shape[0]
+    if control is None:
+        b0 = int(cfg.char_params.body[0]) if n_chars else 0
+        target = st.phys.pos[:, b0]
+    else:
+        follow = control.long()
+        b0 = cfg.char_params.body[torch.clamp(follow, 0, n_chars - 1)] \
+            if n_chars else torch.zeros_like(follow)
+        env = torch.arange(follow.shape[0], device=follow.device)
+        target = st.phys.pos[env, b0.long()]
+    if head_target is not None:
+        hpos, hvalid = head_target
+        env = torch.arange(hpos.shape[0], device=hpos.device)
+        c = torch.zeros_like(env) if control is None \
+            else torch.clamp(control.long(), 0, hpos.shape[1] - 1)
+        target = torch.where(hvalid[env, c][:, None], hpos[env, c], target)
     if camera_occlusion:
         eye, _q, _deff = camera_update(cfg.world, target, pitch, yaw, dist)
     else:
@@ -175,11 +195,9 @@ def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
                 camera_occlusion: bool = False) -> EngineState:
     """One headless frame for every env of ``st`` (leading env axis B).
 
-    max_substeps=2 is exact for 60 Hz frames. ``control`` /
-    ``head_target`` retarget the camera in the JAX package; the port does
-    not carry them yet and raises."""
-    if control is not None or head_target is not None:
-        raise NotImplementedError("camera control/head_target retargeting")
+    max_substeps=2 is exact for 60 Hz frames. ``control`` ((B,) int32)
+    and ``head_target`` ((B, C, 3), (B, C) bool) retarget the camera (see
+    _camera_update)."""
     if st.cameras is not None or cfg.camera_char is not None:
         raise NotImplementedError("multi-camera banks")
     dev = st.pos.device
@@ -200,5 +218,6 @@ def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
                                       max_substeps))
     st = _limbo(cfg, st)
     st = _scene_update(cfg, st)
-    st = _camera_update(cfg, st, inputs, camera_occlusion)
+    st = _camera_update(cfg, st, inputs, control, head_target,
+                        camera_occlusion)
     return st._replace(time=st.time + dt, frame=st.frame + 1)

@@ -826,14 +826,14 @@ def raster_tile(counts, trec, brec, width: int, height: int,
     if not trec.is_cuda:
         return raster_tile_ref(counts, trec, brec, width, height, tile_h,
                                tile_w, sub, chunk)
-    from ..cuda_build import load_raster_lib
+    from ..cuda_build import load_lib
 
     B, n_tiles, ntx, cap, n_big, Hp, Wp = _kernel_args(
         counts, trec, brec, width, height, tile_h, tile_w, sub, chunk, NCOEF)
     outs = [torch.empty((B, Hp, Wp), dtype=torch.float32,
                         device=trec.device) for _ in range(5)]
     stream = torch.cuda.current_stream(trec.device).cuda_stream
-    rc = load_raster_lib().raster_tile_launch(
+    rc = load_lib("raster").raster_tile_launch(
         _ptr(counts), _ptr(trec), _ptr(brec), *(_ptr(o) for o in outs),
         B, n_tiles, ntx, tile_h, tile_w, sub, cap, n_big, chunk, Hp, Wp,
         ctypes.c_void_p(stream))
@@ -853,14 +853,14 @@ def raster_depth(counts, trec, brec, width: int, height: int,
     if not trec.is_cuda:
         return raster_depth_ref(counts, trec, brec, width, height, tile_h,
                                 tile_w, sub, chunk)
-    from ..cuda_build import load_raster_lib
+    from ..cuda_build import load_lib
 
     B, n_tiles, ntx, cap, n_big, Hp, Wp = _kernel_args(
         counts, trec, brec, width, height, tile_h, tile_w, sub, chunk,
         NCOEF_DEPTH)
     depth = torch.empty((B, Hp, Wp), dtype=torch.float32, device=trec.device)
     stream = torch.cuda.current_stream(trec.device).cuda_stream
-    rc = load_raster_lib().raster_depth_launch(
+    rc = load_lib("raster").raster_depth_launch(
         _ptr(counts), _ptr(trec), _ptr(brec), _ptr(depth),
         B, n_tiles, ntx, tile_h, tile_w, sub, cap, n_big, chunk, Hp, Wp,
         ctypes.c_void_p(stream))

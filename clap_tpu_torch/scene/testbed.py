@@ -240,7 +240,47 @@ def testbed_models(tb: Testbed, with_lods: bool = True,
     return models
 
 
-def replicate_state(st: EngineState, n_envs: int) -> EngineState:
-    """Broadcast one initial state to an env batch (contiguous copies)."""
+def replicate_state(st, n_envs: int):
+    """Broadcast one initial state (an EngineState, or any tree of
+    tensors such as a GameSessionState) to an env batch (contiguous
+    copies)."""
     return tree_map(
         lambda x: x.expand(n_envs, *x.shape).contiguous(), st)
+
+
+def build_demo_rig(device=None):
+    """Small procedural character rig + clips for asset-less demos (the
+    reference ships glTF rigs in the absent asset submodules; this stands
+    in so every character can animate: a 3-joint chain with looping
+    idle/motion/jump/fall clips). Returns (skeleton, library,
+    AnimConfig)."""
+    from ..anim.clips import PATH_ROTATION, build_library
+    from ..anim.joints import build_skeleton
+    from ..anim.system import default_state_map
+
+    parent = [-1, 0, 1]
+    # inverse bind = inverse of each joint's rest GLOBAL transform, so the
+    # rest pose skins to identity — joints sit at y = 0, 0.8, 1.6
+    invbind = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    for j, y in enumerate((0.0, 0.8, 1.6)):
+        invbind[j, 1, 3] = -y
+    base_t = np.array([[0, 0, 0], [0, 0.8, 0], [0, 0.8, 0]], np.float32)
+    base_r = np.tile(np.array([0, 0, 0, 1], np.float32), (3, 1))
+    base_s = np.ones((3, 3), np.float32)
+    sk = build_skeleton(parent, invbind, base_t, base_r, base_s, device)
+
+    keys = np.linspace(0.0, 1.0, 8).astype(np.float32)
+
+    def swing(amp, phase=0.0):
+        ang = amp * np.sin(2 * np.pi * keys + phase)
+        q = np.stack([np.sin(ang / 2), np.zeros_like(ang),
+                      np.zeros_like(ang), np.cos(ang / 2)], -1)
+        return q.astype(np.float32)
+
+    clips = []
+    for amp in (0.1, 0.6, 0.9, 0.4):   # idle, motion, jump, fall
+        clips.append([(1, PATH_ROTATION, keys, swing(amp)),
+                      (2, PATH_ROTATION, keys, swing(amp, np.pi / 2))])
+    lib = build_library(clips, 3, device)
+    acfg = default_state_map(["idle", "motion", "jump", "fall"], device)
+    return sk, lib, acfg

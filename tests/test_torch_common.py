@@ -35,8 +35,9 @@ def to_port(tree, device=None):
 
 
 def assert_tree_close(ref, got, atol=1e-4, rtol=1e-4, path="tree"):
-    """Field-by-field comparison of a JAX-package tree (numpy leaves) and
-    a port tree: int/bool leaves exact, float leaves within atol + rtol."""
+    """Field-by-field comparison of a JAX-package tree (numpy leaves; plain
+    tuples element by element) and a port tree: int/bool leaves exact,
+    float leaves within atol + rtol."""
     if ref is None:
         assert got is None, path
         return
@@ -44,6 +45,11 @@ def assert_tree_close(ref, got, atol=1e-4, rtol=1e-4, path="tree"):
         assert tuple(ref._fields) == tuple(got._fields), path
         for f, a, b in zip(ref._fields, ref, got):
             assert_tree_close(a, b, atol, rtol, f"{path}.{f}")
+        return
+    if isinstance(ref, (tuple, list)):
+        assert len(ref) == len(got), path
+        for i, (a, b) in enumerate(zip(ref, got)):
+            assert_tree_close(a, b, atol, rtol, f"{path}[{i}]")
         return
     a = np.asarray(ref)
     b = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
@@ -64,6 +70,11 @@ def assert_tree_equal(ref, got, path="tree"):
         assert tuple(ref._fields) == tuple(got._fields), path
         for f, a, b in zip(ref._fields, ref, got):
             assert_tree_equal(a, b, f"{path}.{f}")
+        return
+    if isinstance(ref, (tuple, list)):
+        assert len(ref) == len(got), path
+        for i, (a, b) in enumerate(zip(ref, got)):
+            assert_tree_equal(a, b, f"{path}[{i}]")
         return
     a = np.asarray(ref)
     b = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \

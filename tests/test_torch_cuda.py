@@ -7,10 +7,10 @@ tests/conftest.py does, so on the card run it without the conftest:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Bar, as for the reference's own kernel check: tid agreement >= 99.5 % and
-depth within 1e-4 where ids agree (K2: the same finite pixels, depth
-within 1e-4). The kernels are bit-exact against the plain versions in
-practice."""
+Bar for K1/K2, as for the reference's own kernel check: tid agreement
+>= 99.5 % and depth within 1e-4 where ids agree (K2: the same finite
+pixels, depth within 1e-4); they are bit-exact in practice. K3 (the CA
+kernel) is integer arithmetic and must be bit-exact."""
 import math
 
 import numpy as np
@@ -18,8 +18,22 @@ import pytest
 import torch
 
 from clap_tpu_torch import mathx as mx
+from clap_tpu_torch.ops import ca2d as CA
 from clap_tpu_torch.render import raster as R
 from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
+
+# one rule of each neighbourhood the content rules lack (vn1, vnv); the
+# CPU parity tests import them too
+CA_VN1_TEST = CA.CARule("vn1 test", born_mask=0b0110, surv_mask=0b1100,
+                        nr_states=3, decay=True, neigh="vn1")
+CA_VNV_TEST = CA.CARule("vnv test", born_mask=0b0011, surv_mask=0b0101,
+                        nr_states=7, decay=True, neigh="vnv")
+CA_RULES = [CA.CA_TEST, CA.CA_COOL_TREE, CA.CA_ASH_PINUS, CA_VN1_TEST,
+            CA_VNV_TEST]
+# (B, H, W) × generations: kernel_parity_check's shape, odd widths that
+# are no multiple of 32, and the bench's 256² × 1,000
+CA_SHAPES = [((1, 64, 64), 32), ((3, 96, 160), 17), ((2, 37, 53), 9),
+             ((1, 256, 256), 1000)]
 
 
 @pytest.fixture
@@ -52,8 +66,10 @@ def _scene_records(W, H, dev):
 def test_kernel_build_on_card(cuda_device):
     from clap_tpu_torch import cuda_build
 
-    lib = cuda_build.load_raster_lib()
+    cuda_build.build_all()
+    lib = cuda_build.load_lib("raster")
     assert lib.raster_tile_launch and lib.raster_depth_launch
+    assert cuda_build.load_lib("ca2d").ca2d_launch
 
 
 @pytest.mark.cuda
@@ -94,3 +110,43 @@ def test_kernel_rejects_cpu_inputs_mixed_with_cuda(cuda_device):
     args[0] = args[0].cpu()
     with pytest.raises(ValueError):
         R.raster_tile(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,steps", CA_SHAPES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+@pytest.mark.parametrize("rule", CA_RULES, ids=lambda r: r.name)
+def test_ca2d_kernel_matches_plain_version_on_card(cuda_device, rule, shape,
+                                                   steps):
+    gen = torch.Generator(device=cuda_device).manual_seed(steps)
+    g = torch.randint(0, rule.nr_states + 1, shape, generator=gen,
+                      device=cuda_device, dtype=torch.int32).to(torch.uint8)
+    before = CA.ca2d_run_fused.launches
+    k = CA.ca2d_run_fused(rule, g, steps)
+    torch.cuda.synchronize()
+    assert CA.ca2d_run_fused.launches == before + 1
+    assert torch.equal(k, CA.ca2d_run(rule, g, steps))
+
+
+@pytest.mark.cuda
+def test_ca2d_kernel_edges_on_card(cuda_device):
+    g = torch.randint(0, 5, (64, 64), device=cuda_device,
+                      dtype=torch.int32).to(torch.uint8)
+    same = CA.ca2d_run_fused(CA.CA_TEST, g, 0)          # a copy, (H, W)
+    assert same.shape == (64, 64) and torch.equal(same, g)
+    before = CA.ca2d_run_fused.launches
+    empty = CA.ca2d_run_fused(CA.CA_TEST, g[None, :0], 5)   # launches nothing
+    assert empty.shape == (1, 0, 64)
+    none = CA.ca2d_run_fused(CA.CA_TEST, g[None][:0], 5)
+    assert none.shape == (0, 64, 64)
+    assert CA.ca2d_run_fused.launches == before
+
+
+@pytest.mark.cuda
+def test_ca2d_kernel_refuses_grids_beyond_one_block(cuda_device):
+    """A grid whose halo'd bytes exceed the card's opt-in shared memory per
+    block raises, naming the limit; there is no fallback."""
+    g = torch.zeros((1, 512, 512), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        CA.ca2d_run_fused(CA.CA_TEST, g, 1)

@@ -29,7 +29,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 25 and bad == "[]"
+    assert int(n) >= 45 and bad == "[]"
 
 
 def test_chip_smoke_imports_no_jax():
@@ -55,3 +55,14 @@ def test_kernel_wrappers_count_only_kernel_launches():
                        torch.zeros((1, 32, R.NCOEF_DEPTH)), 128, 8, 8, 128,
                        1, 32)
     assert torch.isinf(d).all()
+
+
+def test_ca2d_wrapper_counts_only_kernel_launches():
+    from clap_tpu_torch.ops import ca2d
+
+    before = ca2d.ca2d_run_fused.launches
+    g = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    g[:, 3:5, 3:5] = 4
+    out = ca2d.ca2d_run_fused(ca2d.CA_TEST, g, 2)
+    assert ca2d.ca2d_run_fused.launches == before
+    assert torch.equal(out, ca2d.ca2d_run(ca2d.CA_TEST, g, 2))

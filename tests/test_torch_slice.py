@@ -1,9 +1,11 @@
 """The slice end to end: 2 frames of the port's step_and_render (2 envs,
-96², the composed testbed cut to test size) against the JAX composition
-of bench.py:668-684 with engine_step in place of game_step — the vmapped
-engine_step (camera occlusion on), assemble_cluster_records_batch and
-render_frame_dynamic_batch. Bars: state int/bool exact and float within
-atol 1e-4 + rtol 1e-4; LDR PSNR >= 35 dB per env and frame."""
+96², the composed testbed cut to test size) on a GameWorld with no game
+layer, against the JAX composition of bench.py:668-684 with engine_step
+in place of game_step — the vmapped engine_step (camera occlusion on),
+assemble_cluster_records_batch and render_frame_dynamic_batch. (The full
+game layer composed the same way is tests/test_torch_game.py's.) Bars:
+state int/bool exact and float within atol 1e-4 + rtol 1e-4; LDR PSNR
+>= 35 dB per env and frame."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from clap_tpu.render import pipeline as jpl
 from clap_tpu.render import scenerender as jsr
 from clap_tpu.scene import testbed as jtb
 from clap_tpu_torch.engine.frame import SceneRenderer, step_and_render
+from clap_tpu_torch.engine.game import GameSessionState, GameWorld
 from clap_tpu_torch.engine.step import Inputs
 from clap_tpu_torch.render import pipeline as tpl
 from clap_tpu_torch.render import scenerender as tsr
@@ -65,12 +68,13 @@ def frames():
                   cam_delta=torch.zeros((B, 3)),
                   dash=torch.zeros((B, 2), dtype=torch.bool))
     js = jtb.replicate_state(J.state0, B)
-    ts = ttb.replicate_state(T.state0, B)
+    gw = GameWorld(scene=T.cfg)
+    gs = GameSessionState(engine=ttb.replicate_state(T.state0, B))
     out = []
     for _ in range(FRAMES):
         js, jimg = jax_step_and_render(js, jins)
-        ts, timg = step_and_render(T.cfg, renderer, ts, tins)
-        out.append((jnp_tree(js), np.asarray(jimg), ts, timg.numpy()))
+        gs, timg = step_and_render(gw, renderer, gs, tins)
+        out.append((jnp_tree(js), np.asarray(jimg), gs.engine, timg.numpy()))
     return out
 
 
