@@ -23,14 +23,20 @@ Phases, one or more lines each:
    occlusion, switch rules, rig animation — then cluster-record assembly
    and the composed frame with the baked static shadow): 1 warm-up + 10
    timed frames, ms/frame, env-fps, peak memory, clusters/tiles at
-   capacity, each kernel timed alone next to its plain version, launch
+   capacity, each kernel timed alone next to its plain version and its
+   bound (records walked counted on the plain version's walk), launch
    counts of the driven run, and an end-to-end check of two envs' images
    against the plain CPU path.
 6. CA — K3 (ca2d_run_fused) bit-exact against its plain version ca2d_run
-   for 5 rules × 4 shapes; the CA path driven (the JAX bench's config #1:
-   one 256² CA_TEST grid × 1,000 generations, then 1,024 × 256² × 100);
-   both timed against the plain version (CUDA events); a 512² grid must
-   raise; cave_scene(48³, rule 2, 8 steps) on the card equals the CPU run.
+   for 5 rules on every route, each line with its route, cluster size and
+   launches per call: 4 shapes (64², 96×160, 37×53, 256² × 1,000),
+   512² and 1,024² over a cluster, 256² × 64 at every cluster size the
+   card schedules, 132 × 37×53 in place, 2,048² × 5 on the
+   device-memory route; the CA path driven (the JAX bench's config
+   #1: one 256² CA_TEST grid × 1,000 generations, then 1,024 × 256² × 100)
+   and timed against the plain version and its bound (CUDA events; config
+   #1's bound also with 1,000 cluster barriers timed alone);
+   cave_scene(48³, rule 2, 8 steps) on the card equals the CPU run.
 7. skinning — the JAX bench's config #3 (1,024 instances, 64 joints,
    4,096 verts): pose sampling, joint matrices and batched LBS, ms per
    call and skinned verts/s; four instances against the CPU path (1e-4).
@@ -346,9 +352,18 @@ def main() -> int:
     k1_plain = time_ms(R.raster_tile_ref, tile_args, 3)
     k2_ms = time_ms(R.raster_depth, depth_args, 20)
     k2_plain = time_ms(R.raster_depth_ref, depth_args, 3)
+    k1_bound = walk_bound(R, R.raster_tile_ref, tile_args, R.NCOEF, 5, 12)
+    k2_bound = walk_bound(R, R.raster_depth_ref, depth_args, R.NCOEF_DEPTH,
+                          1, 0)
     log(f"phase 5 kernel timing ({N_SLICE} envs, frame 11 inputs): K1 "
         f"raster_tile {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms; K2 "
         f"raster_depth {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms ({smi})")
+    for name, (bms, by, n) in (("K1", k1_bound), ("K2", k2_bound)):
+        log(f"phase 5 {name} bound: {bms:.4f} ms ({by}); {n['records']} "
+            f"records walked ({n['small']} of the tiles' lists, "
+            f"{n['big']} of the big lists, read once), {n['tests']} "
+            f"pixel-record tests, {n['wins']} wins; {n['bytes']} B, "
+            f"{n['flops']} flop")
 
     # ------------------------------------- 5c end-to-end vs the CPU path
     cpu_renderer = SceneRenderer(
@@ -373,21 +388,27 @@ def main() -> int:
     # ---------------------------------------------------------------- 7
     run_skinning_phase(dev, smi, require)
 
+    # library_ms: no single PyTorch call computes a first-wins tile walk
+    # or a multi-generation CA
     src = "clap_tpu_torch/csrc/raster.cu"
     log(json.dumps({"kernels": [
         {"name": "raster_tile", "route": "cuda", "source": src,
          "replaces": "clap_tpu/render/raster.py:1041",
          "launches": launches["raster_tile"], "max_abs_err": tile_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "clap_tpu/render/raster.py:633",
          "launches": launches["raster_depth"], "max_abs_err": depth_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "ca2d_run_fused", "route": "cuda",
          "source": "clap_tpu_torch/csrc/ca2d.cu",
          "replaces": "clap_tpu/ops/ca2d.py:192",
          "launches": ca["launches"], "max_abs_err": ca["max_abs_err"],
-         "ms": ca["ms"], "plain_ms": ca["plain_ms"]},
+         "ms": ca["ms"], "plain_ms": ca["plain_ms"],
+         "bound_ms": ca["bound_ms"], "bound_by": ca["bound_by"],
+         "library_ms": None, "barrier_bound_ms": ca["barrier_bound_ms"]},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -396,37 +417,115 @@ def main() -> int:
     return 0
 
 
-def run_ca_phase(dev, smi, time_ms, require):
-    """Phase 6: K3 against its plain version, the CA path driven and
-    timed, the one-block limit, and cave_scene on the card vs the CPU."""
+def walk_bound(R, plain, args, ncoef, planes, win_flop):
+    """The least time of a K1 / K2 launch on ``args``, from the plain
+    version's walk, instrumented: the records each list walks up to its
+    early-out. Bytes: the counts, the records of the tiles' lists walked
+    and of each env's big list, read once, and the output planes written
+    once, at 3.35 TB/s. Flops: per pixel and record walked, the four planes
+    of the test (16), and ``win_flop`` per win, at 67 TFLOP/s (float32
+    outside the tensor cores). Returns (ms, "bytes" | "operations", counts)."""
     import torch
 
+    walk = R._walk_ref
+    n = {"records": 0, "tests": 0, "wins": 0}
+
+    def counted(*a):
+        step = a[-1]
+
+        def step_counted(slab, nv, px, py, carry):
+            new = step(slab, nv, px, py, carry)
+            rows = int(torch.clamp(nv, max=slab.shape[1]).sum())
+            n["records"] += rows
+            n["tests"] += rows * px.shape[1] * px.shape[2]
+            n["wins"] += int((new[0] < carry[0]).sum())
+            return new
+        return walk(*a[:-1], step_counted)
+
+    R._walk_ref = counted
+    try:
+        out = plain(*args)
+    finally:
+        R._walk_ref = walk
+    counts, sub = args[0], args[7]
+    big = counts[..., sub]                       # per env and tile
+    n["big"] = int(big[:, 0].sum())              # each env's list, once
+    n["small"] = n["records"] - int(big.sum()) * sub
+    hw = (out[0] if isinstance(out, tuple) else out).numel()
+    n["bytes"] = counts.numel() * 4 + (n["small"] + n["big"]) * ncoef * 4 \
+        + planes * hw * 4
+    n["flops"] = 16 * n["tests"] + win_flop * n["wins"]
+    t_bytes, t_ops = n["bytes"] / 3.35e12 * 1e3, n["flops"] / 67e12 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations"), n
+
+
+def run_ca_phase(dev, smi, time_ms, require):
+    """Phase 6: K3 against its plain version on every route (5 rules × 4
+    shapes, 512² and 1,024² over a cluster, every schedulable cluster
+    size, 2,048² on the device-memory route), the CA path driven and timed
+    beside its bound, and cave_scene on the card vs the CPU."""
+    import ctypes
+
+    import torch
+
+    from clap_tpu_torch.cuda_build import load_lib
     from clap_tpu_torch.ops import ca2d as CA
     from clap_tpu_torch.scene.voxel import cave_scene
 
     sync = torch.cuda.synchronize
+    limit, cap, sms = CA.ca2d_card(dev)
+    lib = load_lib("ca2d")
+    act = {cs: lib.ca2d_active_clusters(0, cs, limit)
+           for cs in (1, 2, 4, 8, 16)}
+    log(f"phase 6 card: {limit} B shared memory per block, {sms} SMs; "
+        f"largest cluster the card schedules {cap}; max active clusters "
+        f"per size at {limit} B per CTA {act}")
     vn1 = CA.CARule("vn1 test", born_mask=0b0110, surv_mask=0b1100,
                     nr_states=3, decay=True, neigh="vn1")
     vnv = CA.CARule("vnv test", born_mask=0b0011, surv_mask=0b0101,
                     nr_states=7, decay=True, neigh="vnv")
-    shapes = [((1, 64, 64), 32), ((3, 96, 160), 17), ((2, 37, 53), 9),
-              ((1, 256, 256), 1000)]
+    rules = (CA.CA_TEST, CA.CA_COOL_TREE, CA.CA_ASH_PINUS, vn1, vnv)
     gen = torch.Generator(device=dev).manual_seed(6)
     max_err = 0
-    for rule in (CA.CA_TEST, CA.CA_COOL_TREE, CA.CA_ASH_PINUS, vn1, vnv):
+
+    def check(name, shape, steps, plan=None):
+        """Every rule on one shape: bit-exact, one line with the route."""
+        nonlocal max_err
         exact = []
-        for shape, steps in shapes:
+        for rule in rules:
             g = torch.randint(0, rule.nr_states + 1, shape, generator=gen,
                               device=dev, dtype=torch.int32).to(torch.uint8)
-            k = CA.ca2d_run_fused(rule, g, steps)
+            before = CA.ca2d_run_fused.launches
+            k = CA.ca2d_run_fused(rule, g, steps, plan)
             sync()
+            per_call = CA.ca2d_run_fused.launches - before
             r = CA.ca2d_run(rule, g, steps)
             max_err = max(max_err, int((k.int() - r.int()).abs().max()))
             exact.append(bool(torch.equal(k, r)))
-        log(f"phase 6 parity {rule.name} ({rule.neigh}): K3 bit-exact "
-            f"against ca2d_run for {exact} at "
-            f"{[f'{s[0]}x{s[1]}x{s[2]}x{n}' for s, n in shapes]}")
-        require(all(exact), f"K3 bit-exact for rule {rule.name}")
+        p = plan or CA.ca2d_plan(*shape, limit, cap, sms)
+        log(f"phase 6 parity {name} {'x'.join(map(str, shape))} x {steps}: "
+            f"{p.route} route, cluster {p.cluster}, {per_call} launch(es) "
+            f"per call; K3 bit-exact against ca2d_run for "
+            f"{[r.neigh for r in rules]}: {exact}")
+        require(all(exact), f"K3 bit-exact on {name} {shape}")
+
+    for shape, steps in (((1, 64, 64), 32), ((3, 96, 160), 17),
+                         ((2, 37, 53), 9), ((1, 256, 256), 1000)):
+        check("shape", shape, steps)
+    for side, steps in ((512, 20), (1024, 5)):
+        p = CA.ca2d_plan(1, side, side, limit, cap, sms)
+        require(p.route == "cluster" and p.cluster > 1,
+                f"{side}^2 splits over a cluster")
+        check("past one block", (1, side, side), steps)
+    for cs in (1, 2, 4, 8, 16):
+        if cs <= cap:
+            check(f"cluster {cs} forced", (1, 256, 256), 64, CA.ca2d_plan(
+                1, 256, 256, limit, cap, sms, cluster=cs))
+    check("in place", (132, 37, 53), 9)
+    require(CA.ca2d_plan(1, 2048, 2048, limit, cap, sms).route == "global",
+            "2048^2 takes the device-memory route")
+    check("past the largest cluster", (1, 2048, 2048), 5)
 
     # the driven CA path: counts start here
     CA.ca2d_run_fused.launches = 0
@@ -444,34 +543,55 @@ def run_ca_phase(dev, smi, time_ms, require):
             "batched grids equal the plain version")
     live = float((outb != 0).float().mean())
     require(0.0 < live < 1.0, "the batched grids stay alive and not full")
+    p1 = CA.ca2d_plan(1, 256, 256, limit, cap, sms)
+    pb = CA.ca2d_plan(1024, 256, 256, limit, cap, sms)
+    log(f"phase 6 CA path: config #1 on the {p1.route} route, cluster "
+        f"{p1.cluster}, bands of {p1.bands[0]} rows; the batch on the "
+        f"{pb.route} route, cluster {pb.cluster}; launches in the driven "
+        f"run: ca2d_run_fused {launches}")
+
+    # bounds: the input read and the output written once at 3.35 TB/s; 2.5
+    # int32 operations per cell and generation (the separable count, four
+    # cells to a word) at 132 SMs x 64 lanes x the max SM clock; config #1
+    # also waits 1,000 cluster barriers, timed alone
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+        .stdout.split()[0]) * 1e6
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def probe():
+        rc = lib.ca2d_barrier_probe(p1.cluster, 1000, stream)
+        require(rc == 0, f"barrier probe launched (CUDA error {rc})")
+
+    barrier_ms = time_ms(probe, (), 5)
+
+    def bound(cells, steps):
+        t_bytes = 2 * cells / 3.35e12 * 1e3
+        t_ops = 2.5 * cells * steps / (132 * 64 * clock) * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops \
+            else "operations"
 
     ms = time_ms(CA.ca2d_run_fused, (CA.CA_TEST, g1, 1000), 5)
     plain_ms = time_ms(CA.ca2d_run, (CA.CA_TEST, g1, 1000), 2)
+    b1, by1 = bound(256 * 256, 1000)
     log(f"phase 6 CA config #1 (1 x 256^2 CA_TEST x 1000 generations): K3 "
         f"{ms:.3f} ms ({256 * 256 * 1000 / ms * 1e3:.4g} cell-steps/s) vs "
-        f"plain {plain_ms:.3f} ms ({256 * 256 * 1000 / plain_ms * 1e3:.4g} "
-        f"cell-steps/s) ({smi})")
+        f"plain {plain_ms:.3f} ms; bound {b1:.4f} ms ({by1}, at "
+        f"{clock / 1e6:.0f} MHz), with 1,000 cluster barriers of cluster "
+        f"{p1.cluster} ({barrier_ms:.3f} ms alone) {b1 + barrier_ms:.3f} ms "
+        f"({smi})")
     cells = 1024 * 256 * 256 * 100
     before = CA.ca2d_run_fused.launches
     ms_b = time_ms(CA.ca2d_run_fused, (CA.CA_TEST, gb, 100), 5)
     per_call = (CA.ca2d_run_fused.launches - before) / 6
     plain_b = time_ms(CA.ca2d_run, (CA.CA_TEST, gb, 100), 1)
+    bb, byb = bound(1024 * 256 * 256, 100)
     log(f"phase 6 CA batched (1024 x 256^2 = 64 MiB, 100 generations): K3 "
         f"{ms_b:.3f} ms ({cells / ms_b * 1e3:.4g} cell-steps/s, "
         f"{per_call:.0f} launch per call) vs plain {plain_b:.3f} ms "
-        f"({cells / plain_b * 1e3:.4g} cell-steps/s); live cells "
-        f"{live:.3f} ({smi})")
-    log(f"phase 6 launches in the driven CA run: ca2d_run_fused {launches}")
-
-    try:
-        CA.ca2d_run_fused(CA.CA_TEST, torch.zeros(
-            (1, 512, 512), dtype=torch.uint8, device=dev), 1)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        raise RuntimeError("check failed: a 512^2 grid did not raise")
-    require("shared memory" in msg, "the 512^2 refusal names the limit")
-    log(f"phase 6 limit: 512^2 raises ValueError: {msg}")
+        f"({cells / plain_b * 1e3:.4g} cell-steps/s); bound {bb:.3f} ms "
+        f"({byb}); live cells {live:.3f} ({smi})")
 
     t0 = time.perf_counter()
     a = cave_scene(48, 48, 48, seed=5, ca_rule=2, ca_steps=8, device=dev)
@@ -483,7 +603,8 @@ def run_ca_phase(dev, smi, time_ms, require):
         f"({time.perf_counter() - t0:.1f} s for both)")
     require(same and a[3].shape[0] > 0, "cave_scene on the card equals CPU")
     return {"launches": launches, "max_abs_err": float(max_err), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": b1, "bound_by": by1,
+            "barrier_bound_ms": b1 + barrier_ms}
 
 
 def run_skinning_phase(dev, smi, require, n_inst=1024, n_joints=64,
@@ -506,7 +627,8 @@ def run_skinning_phase(dev, smi, require, n_inst=1024, n_joints=64,
     base_t = rng.standard_normal((n_joints, 3)).astype(np.float32) * 0.1
     base_r = np.tile(np.array([0, 0, 0, 1], np.float32), (n_joints, 1))
     base_s = np.ones((n_joints, 3), np.float32)
-    sk = build_skeleton(parent, invbind, base_t, base_r, base_s)
+    sk = build_skeleton(parent, invbind, base_t, base_r, base_s,
+                        device="cpu")
     keys = np.linspace(0, 2.0, 16)
 
     def qr():
@@ -518,7 +640,7 @@ def run_skinning_phase(dev, smi, require, n_inst=1024, n_joints=64,
         clip.append((j, PATH_ROTATION, keys, qr()))
         clip.append((j, PATH_TRANSLATION, keys,
                      rng.standard_normal((16, 3)).astype(np.float32) * 0.05))
-    lib = build_library([clip], n_joints)
+    lib = build_library([clip], n_joints, device="cpu")
     verts = torch.as_tensor(rng.standard_normal((n_verts, 3)),
                             dtype=torch.float32)
     normals = verts / torch.linalg.vector_norm(verts, dim=-1, keepdim=True)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import mathx as mx
+from ..device import resolve_device
 
 PATH_TRANSLATION = 0
 PATH_ROTATION = 1
@@ -45,6 +46,7 @@ class Pose(NamedTuple):
 def build_library(clips, n_joints: int, device=None) -> AnimLibrary:
     """Host-side packing. ``clips`` is a list of channel lists; each
     channel is (joint:int, path:int, times:(T_i,), values:(T_i, D))."""
+    device = resolve_device(device)
     L = len(clips)
     C = max((len(ch) for ch in clips), default=1) or 1
     T = max((len(c[2]) for ch in clips for c in ch), default=2)

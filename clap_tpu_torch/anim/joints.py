@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import mathx as mx
+from ..device import resolve_device
 from .clips import Pose
 
 JOINTS_MAX = 200
@@ -34,6 +35,7 @@ class Skeleton(NamedTuple):
 def build_skeleton(parent, invbind, base_trans, base_rot, base_scale,
                    device=None) -> Skeleton:
     """Host-side: compute levels from the parent array."""
+    device = resolve_device(device)
     parent = np.asarray(parent, np.int32)
     J = len(parent)
     depth = np.zeros(J, np.int32)

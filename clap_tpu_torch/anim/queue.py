@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 QUEUE_MAX = 4
 
 
@@ -25,6 +27,7 @@ class AnimQueue(NamedTuple):
 
 
 def queue_init(device=None) -> AnimQueue:
+    device = resolve_device(device)
     return AnimQueue(
         clip=torch.full((QUEUE_MAX,), -1, dtype=torch.int32, device=device),
         repeat=torch.zeros((QUEUE_MAX,), dtype=torch.bool, device=device),

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .clips import AnimLibrary, Pose, sample_pose
 from .joints import Skeleton, joint_matrices
 from .queue import AnimQueue, queue_advance, queue_init, queue_push
@@ -60,6 +61,7 @@ def anim_sfx_from_names(names: list[str], motion_segments: int = 4,
                         device=None) -> AnimSfx:
     """Build the per-clip AnimSfx table from clip names — the exact
     name→frame_fn wiring of animation_sfx (scene.c:1295-1303)."""
+    device = resolve_device(device)
     L = max(len(names), 1)
     seg = np.zeros((L,), np.int32)
     single = np.full((L,), -1.0, np.float32)
@@ -78,6 +80,7 @@ def anim_sfx_from_names(names: list[str], motion_segments: int = 4,
 def default_state_map(names: list[str], device=None) -> AnimConfig:
     """Map CS_* to clips by the reference's naming convention
     ("idle"/"motion"/"jump"/"fall", scene.c animation renames)."""
+    device = resolve_device(device)
     def find(*cands):
         for c in cands:
             if c in names:
@@ -96,6 +99,7 @@ def default_state_map(names: list[str], device=None) -> AnimConfig:
 
 
 def anim_instance_init(with_sfx: bool = False, device=None) -> AnimInstance:
+    device = resolve_device(device)
     return AnimInstance(
         queue=queue_init(device),
         prev_state=torch.tensor(-1, dtype=torch.int32, device=device),
@@ -108,6 +112,7 @@ def anim_instances_init(n: int, with_sfx: bool = False,
     """Batched instances for n rigs (mq_update animates every entity's
     rig each frame, model.c:1953). with_sfx allocates the frame-SFX
     counter — pass True when the GameWorld wires an AnimSfx table."""
+    device = resolve_device(device)
     def rep(x):
         return None if x is None else x.expand(n, *x.shape).clone()
 

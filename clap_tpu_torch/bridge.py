@@ -19,6 +19,7 @@ from .anim.joints import Skeleton
 from .anim.queue import AnimQueue
 from .anim.system import AnimConfig, AnimInstance, AnimSfx
 from .char.controller import CharParams, CharState
+from .device import resolve_device
 from .engine.game import GameSessionState, GameWorld
 from .engine.gamelogic import GameConfig, GameState
 from .engine.state import CameraState, EngineState, EntityParams, SceneConfig
@@ -80,7 +81,10 @@ def _convert_node(tree, leaf):
 
 
 def from_numpy(tree, device=None):
-    """JAX-package tree (numpy leaves) → port tree (torch leaves)."""
+    """JAX-package tree (numpy leaves) → port tree (torch leaves) on
+    ``device``, the card unless named."""
+    device = resolve_device(device)
+
     def leaf(x):
         if isinstance(x, (bool, int, float)):
             return x

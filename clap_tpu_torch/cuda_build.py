@@ -33,12 +33,17 @@ def _bind_raster(lib):
 
 def _bind_ca2d(lib):
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.ca2d_launch.argtypes = [P, P, I, I, I, I, U, U, I, I, I, P]
-    lib.ca2d_launch.restype = I
-    lib.ca2d_smem_bytes.argtypes = [I, I]
-    lib.ca2d_smem_bytes.restype = ctypes.c_longlong
+    lib.ca2d_launch.argtypes = [P, P, I, I, I, I, U, U] + [I] * 7 + [P]
+    lib.ca2d_global_launch.argtypes = [P, P, P, I, I, I, I, U, U] \
+        + [I] * 4 + [P]
     lib.ca2d_smem_limit.argtypes = [I]
-    lib.ca2d_smem_limit.restype = I
+    lib.ca2d_active_clusters.argtypes = [I, I, I]
+    lib.ca2d_barrier_probe.argtypes = [I, I, P]
+    for fn in (lib.ca2d_launch, lib.ca2d_global_launch, lib.ca2d_smem_limit,
+               lib.ca2d_active_clusters, lib.ca2d_barrier_probe):
+        fn.restype = I
+    lib.ca2d_error_string.argtypes = [I]
+    lib.ca2d_error_string.restype = ctypes.c_char_p
 
 
 # source name -> its ctypes signatures

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 PLATFORM_PARK_Y = 100.0     # main.c:96-138: hidden platforms park +100 up
 GAME_OVER_Y = -130.0        # main.c:182-243
 CAMERA_SPIN_Y = -450.0
@@ -51,6 +53,7 @@ class GameState(NamedTuple):
 
 def game_config_empty(n_switches: int, n_entities: int,
                       device=None) -> GameConfig:
+    device = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     bl = dict(dtype=torch.bool, device=device)
     return GameConfig(
@@ -66,6 +69,7 @@ def game_config_empty(n_switches: int, n_entities: int,
 
 def game_state_init(n_switches: int, n_chars: int, device=None) -> GameState:
     """Unbatched initial state (replicate it over envs)."""
+    device = resolve_device(device)
     connected = torch.zeros((n_chars,), dtype=torch.bool, device=device)
     connected[0] = True
     return GameState(

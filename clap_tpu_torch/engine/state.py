@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..char.controller import CharParams, CharState
+from ..device import resolve_device
 from ..physics.narrowphase import StaticWorld
 from ..physics.world import BodyParams, PhysState
 
@@ -73,6 +74,7 @@ class SceneConfig(NamedTuple):
 def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,
                       device=None) -> EngineState:
     """Unbatched initial state (single active camera)."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     bl = dict(dtype=torch.bool, device=device)

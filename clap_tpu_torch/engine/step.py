@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from .. import mathx as mx
+from ..device import resolve_device
 from ..char import controller as C
 from ..physics import world as W
 from .state import CameraState, EngineState, SceneConfig
@@ -31,6 +32,7 @@ class Inputs(NamedTuple):
 
 
 def inputs_zero(n_chars: int, device=None) -> Inputs:
+    device = resolve_device(device)
     return Inputs(
         motion=torch.zeros((n_chars, 2), dtype=torch.float32, device=device),
         jump=torch.zeros((n_chars,), dtype=torch.bool, device=device),

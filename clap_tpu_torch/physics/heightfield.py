@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class Heightfield(NamedTuple):
     """Static per-scene terrain data (shared by every env)."""
@@ -38,6 +40,8 @@ def _pack_cells(heights: torch.Tensor) -> torch.Tensor:
 
 
 def make_heightfield(heights, normals, origin, side, device=None) -> Heightfield:
+    device = resolve_device(device)
+
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 

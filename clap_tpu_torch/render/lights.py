@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 LIGHT_TILE = 64
 
 
@@ -27,6 +29,7 @@ class Lights(NamedTuple):
 
 
 def lights_empty(n: int = 8, device=None) -> Lights:
+    device = resolve_device(device)
     z3 = torch.zeros((n, 3), dtype=torch.float32, device=device)
     return Lights(
         pos=z3, color=z3.clone(),

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..scene.mesh import LOD_MAX, build_lods
 from .pipeline import SceneGeometry
 from .raster import CLUSTER, cluster_faces, ent_pack_stride
@@ -139,6 +140,7 @@ def build_render_tables(models: list, entity_model, entity_active,
     move the tables to ``device``. Each (entity, LOD) face block is padded
     to a CLUSTER multiple with degenerate faces, so every binning cluster
     is (entity, LOD)-pure."""
+    device = resolve_device(device)
     entity_model = _np(entity_model)
     entity_active = _np(entity_active)
     vs, ns, bc, rm, em, ve = [], [], [], [], [], []

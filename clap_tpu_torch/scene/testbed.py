@@ -15,6 +15,7 @@ import torch
 
 from ..bridge import tree_map
 from ..char.controller import CharParams
+from ..device import resolve_device
 from ..engine.state import (EngineState, EntityParams, SceneConfig,
                             engine_state_init)
 from ..physics.heightfield import heightfield_from_terrain
@@ -64,6 +65,7 @@ def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
     Entities: 0 = terrain, [1, 1+n_chars) = characters, then n_dynamic
     spheres, then instantiator trees; ``terrain_chunks = G`` adds G×G
     chunk entities (model ids 4..) and leaves entity 0 render-empty."""
+    device = resolve_device(device)
     f32 = np.float32
     t = terrain_init_square_landscape(seed, -side / 2, 0.0, -side / 2,
                                       side, nr_v)
@@ -178,7 +180,7 @@ def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
         model_aabb=dev(np.array(aabb_rows, f32)),
         limbo_height=dev(np.float32(40.0)), gravity_y=dev(np.float32(-9.8)))
 
-    st = engine_state_init(E, n_bodies, n_chars)      # host, then moved
+    st = engine_state_init(E, n_bodies, n_chars, "cpu")   # host, then moved
     for ci in range(n_chars):
         cx = 3.0 * ci
         cy = float(terrain_height_np(t, cx, 0.0))
@@ -254,6 +256,7 @@ def build_demo_rig(device=None):
     in so every character can animate: a 3-joint chain with looping
     idle/motion/jump/fall clips). Returns (skeleton, library,
     AnimConfig)."""
+    device = resolve_device(device)
     from ..anim.clips import PATH_ROTATION, build_library
     from ..anim.joints import build_skeleton
     from ..anim.system import default_state_map

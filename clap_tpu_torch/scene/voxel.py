@@ -89,9 +89,11 @@ def cave_scene(d0: int = 24, d1: int = 24, d2: int = 24, seed: int = 5,
     """ca3d_make + optional CA growth → mesh (the reference's procedural
     level path: walk carves a cave in a walled box, then CA rules grow
     features — ca3d.c:110-169). The walk runs on the host, the CA growth
-    on ``device``. Returns numpy (grid, verts, normals, faces)."""
+    on ``device`` (the card unless named). Returns numpy (grid, verts,
+    normals, faces)."""
     import torch
 
+    from ..device import resolve_device
     from ..ops.ca3d import CA3D_RULES, ca3d_run
     from ..utils.frand import Rand48
     from .ca3d_host import ca3d_make_host
@@ -99,7 +101,8 @@ def cave_scene(d0: int = 24, d1: int = 24, d2: int = 24, seed: int = 5,
     grid = ca3d_make_host(d0, d1, d2, Rand48(seed))
     if ca_rule >= 0 and ca_steps > 0:
         rule = CA3D_RULES[ca_rule % len(CA3D_RULES)]
-        g = ca3d_run(rule, torch.as_tensor(grid, device=device), ca_steps)
+        g = ca3d_run(rule, torch.as_tensor(grid, device=resolve_device(
+            device)), ca_steps)
         grid = g.cpu().numpy()
     v, n, f = voxel_mesh(grid, cell=cell)
     return grid, v, n, f

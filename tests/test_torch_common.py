@@ -29,7 +29,7 @@ def jnp_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def to_port(tree, device=None):
+def to_port(tree, device="cpu"):
     """JAX-package tree → the port's tree of the same type name."""
     return from_numpy(jnp_tree(tree), device)
 
@@ -105,7 +105,7 @@ def entry_testbed():
 def test_bridge_round_trip(entry_testbed, part):
     """JAX tree → port tree → numpy reproduces every leaf bit for bit."""
     ref = jnp_tree(getattr(entry_testbed, part))
-    assert_tree_equal(ref, to_numpy(from_numpy(ref)))
+    assert_tree_equal(ref, to_numpy(from_numpy(ref, "cpu")))
 
 
 def test_bridge_rejects_unknown_types():
@@ -115,4 +115,4 @@ def test_bridge_rejects_unknown_types():
         x: np.ndarray
 
     with pytest.raises(TypeError):
-        from_numpy(NotPorted(x=np.zeros(2)))
+        from_numpy(NotPorted(x=np.zeros(2)), "cpu")

@@ -143,10 +143,58 @@ def test_ca2d_kernel_edges_on_card(cuda_device):
     assert CA.ca2d_run_fused.launches == before
 
 
+def _ca_check(rule, shape, steps, dev, plan=None, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randint(0, rule.nr_states + 1, shape, generator=gen,
+                      device=dev, dtype=torch.int32).to(torch.uint8)
+    k = CA.ca2d_run_fused(rule, g, steps, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(k, CA.ca2d_run(rule, g, steps)), (rule.name, plan)
+
+
 @pytest.mark.cuda
-def test_ca2d_kernel_refuses_grids_beyond_one_block(cuda_device):
-    """A grid whose halo'd bytes exceed the card's opt-in shared memory per
-    block raises, naming the limit; there is no fallback."""
-    g = torch.zeros((1, 512, 512), dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        CA.ca2d_run_fused(CA.CA_TEST, g, 1)
+@pytest.mark.parametrize("side,steps", [(512, 20), (1024, 5)])
+def test_ca2d_kernel_grids_beyond_one_block(cuda_device, side, steps):
+    """512² and 1,024² exceed one CTA's shared memory: the planner splits
+    each over a cluster, bit-exact for every neighbourhood."""
+    plan = CA.ca2d_plan(1, side, side, *CA.ca2d_card(cuda_device))
+    assert plan.route == "cluster" and plan.cluster > 1
+    for rule in CA_RULES:
+        _ca_check(rule, (1, side, side), steps, cuda_device, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_ca2d_kernel_every_cluster_size(cuda_device, cs):
+    """Each cluster size up to the card's cap, forced, at 256² × 64."""
+    limit, cap, sms = CA.ca2d_card(cuda_device)
+    if cs > cap:
+        pytest.skip(f"the card schedules clusters of at most {cap}")
+    plan = CA.ca2d_plan(1, 256, 256, limit, cap, sms, cluster=cs)
+    for rule in CA_RULES:
+        _ca_check(rule, (1, 256, 256), 64, cuda_device, plan, cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,steps", [((132, 37, 53), 9),
+                                         ((132, 96, 160), 17)])
+def test_ca2d_kernel_in_place_route(cuda_device, shape, steps):
+    """A batch of one CTA per grid steps in place (one buffer and a saved
+    row); odd widths leave pad bytes in each row's last word."""
+    plan = CA.ca2d_plan(*shape, *CA.ca2d_card(cuda_device))
+    assert plan.route == "inplace"
+    for rule in CA_RULES:
+        _ca_check(rule, shape, steps, cuda_device, plan)
+
+
+@pytest.mark.cuda
+def test_ca2d_kernel_device_memory_route(cuda_device):
+    """A grid no cluster holds: one launch per generation over device
+    memory, plus pack and unpack, each counted."""
+    plan = CA.ca2d_plan(1, 2048, 2048, *CA.ca2d_card(cuda_device))
+    assert plan.route == "global"
+    before = CA.ca2d_run_fused.launches
+    _ca_check(CA.CA_TEST, (1, 2048, 2048), 5, cuda_device, plan)
+    assert CA.ca2d_run_fused.launches == before + 7
+    for rule in CA_RULES[1:]:
+        _ca_check(rule, (1, 2048, 2048), 3, cuda_device, plan)

@@ -1,0 +1,92 @@
+"""The port's public builders make their tensors on the CUDA card unless
+the caller names another device: with no card, a builder called without
+a device raises where it makes its first tensor and builds nothing on the
+CPU; with one, it builds on ``cuda``."""
+import numpy as np
+import pytest
+import torch
+
+from clap_tpu_torch.anim.clips import PATH_ROTATION, build_library
+from clap_tpu_torch.anim.joints import build_skeleton
+from clap_tpu_torch.anim.system import anim_instances_init
+from clap_tpu_torch.bridge import from_numpy
+from clap_tpu_torch.device import resolve_device
+from clap_tpu_torch.engine.gamelogic import game_config_empty, game_state_init
+from clap_tpu_torch.engine.state import engine_state_init
+from clap_tpu_torch.engine.step import Inputs, inputs_zero
+from clap_tpu_torch.ops.ca2d import CA_TEST, ca2d_seed
+from clap_tpu_torch.render.lights import lights_empty
+from clap_tpu_torch.render.scenerender import build_render_tables
+from clap_tpu_torch.scene import testbed as ttb
+from clap_tpu_torch.scene.voxel import cave_scene
+from test_torch_common import ENTRY_SCENE
+
+
+def test_resolve_device():
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+def _one_tensor(out):
+    """The first tensor of a builder's result (a tree or a tuple)."""
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, (tuple, list)):
+        for x in out:
+            t = _one_tensor(x)
+            if t is not None:
+                return t
+    return None
+
+
+_KEYS = np.linspace(0.0, 1.0, 4).astype(np.float32)
+_Q = np.tile(np.array([0, 0, 0, 1], np.float32), (4, 1))
+
+# every public builder of the port, without a device argument
+BUILDERS = {
+    "build_testbed": lambda: ttb.build_testbed(**ENTRY_SCENE),
+    "build_demo_rig": ttb.build_demo_rig,
+    "cave_scene": lambda: cave_scene(8, 8, 8, seed=5, ca_rule=2,
+                                     ca_steps=1),
+    "ca2d_seed": lambda: ca2d_seed(CA_TEST, (8, 8)),
+    "build_render_tables": lambda: build_render_tables(
+        [], np.zeros(2, np.int32), np.zeros(2, bool)),
+    "lights_empty": lambda: lights_empty(2),
+    "inputs_zero": lambda: inputs_zero(2),
+    "game_config_empty": lambda: game_config_empty(1, 4),
+    "game_state_init": lambda: game_state_init(1, 2),
+    "engine_state_init": lambda: engine_state_init(4, 2, 1),
+    "anim_instances_init": lambda: anim_instances_init(2),
+    "build_library": lambda: build_library(
+        [[(1, PATH_ROTATION, _KEYS, _Q)]], 2),
+    "build_skeleton": lambda: build_skeleton(
+        [-1, 0], np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)),
+        np.zeros((2, 3), np.float32), _Q[:2], np.ones((2, 3), np.float32)),
+    "from_numpy": lambda: from_numpy(Inputs(
+        motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
+        cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),
+}
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
+def test_builder_defaults_to_the_card(name):
+    """With a card, the builder's tensors are on it; without one, the call
+    raises (torch refuses the CUDA tensor) instead of building on the
+    CPU."""
+    if torch.cuda.is_available():
+        out = BUILDERS[name]()
+        if name == "cave_scene":            # numpy out; the CA ran on cuda
+            assert out[0].shape == (8, 8, 8)
+        else:
+            assert _one_tensor(out).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|cuda"):
+            BUILDERS[name]()
+
+
+def test_builder_on_the_cpu_when_asked():
+    tb = ttb.build_testbed(**ENTRY_SCENE, device="cpu")
+    assert tb.state0.phys.pos.device.type == "cpu"
+    assert tb.cfg.world.hf.heights.device.type == "cpu"

@@ -85,7 +85,7 @@ def branching_rig(n_joints=11, seed=2):
     args = (parent, invbind,
             rng.standard_normal((n_joints, 3)).astype(np.float32) * 0.1,
             _quats(rng, (n_joints,)), np.ones((n_joints, 3), np.float32))
-    return Jj.build_skeleton(*args), Tj.build_skeleton(*args)
+    return Jj.build_skeleton(*args), Tj.build_skeleton(*args, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +95,7 @@ def branching_rig(n_joints=11, seed=2):
 def test_build_library_and_skeleton_match_jax():
     clips = extra_clips()
     assert_tree_equal(jnp_tree(Jc.build_library(clips, 3)),
-                      Tc.build_library(clips, 3))
+                      Tc.build_library(clips, 3, device="cpu"))
     jsk, tsk = branching_rig()
     assert_tree_equal(jnp_tree(jsk), tsk)
 
@@ -124,11 +124,12 @@ def test_padded_channels_add_nothing():
     clip = extra_clips(pad=True)[1]
     sk = make_rig()
     ts = torch.linspace(-0.1, 1.9, 9)     # inside the clip: same keys
-    padded = Tc.sample_pose(Tc.build_library(extra_clips(pad=True), 3),
+    padded = Tc.sample_pose(Tc.build_library(extra_clips(pad=True), 3, "cpu"),
                             to_port(sk.base), torch.ones(9, dtype=torch.long),
                             ts)
-    alone = Tc.sample_pose(Tc.build_library([clip], 3), to_port(sk.base),
-                           torch.zeros(9, dtype=torch.long), ts)
+    alone = Tc.sample_pose(Tc.build_library([clip], 3, "cpu"),
+                           to_port(sk.base), torch.zeros(9, dtype=torch.long),
+                           ts)
     jlib = Jc.build_library([clip], 3)
     ref = jax.jit(jax.vmap(lambda t: Jc.sample_pose(jlib, sk.base,
                                                     jnp.int32(0), t)))(
@@ -173,7 +174,7 @@ def test_queue_matches_jax():
     rng = np.random.default_rng(3)
     jq = jax.tree.map(lambda x: jnp.broadcast_to(x, (B, *x.shape)),
                       Jq.queue_init())
-    tq = Tq.AnimQueue(*(x.expand(B, *x.shape) for x in Tq.queue_init()))
+    tq = Tq.AnimQueue(*(x.expand(B, *x.shape) for x in Tq.queue_init("cpu")))
     push = jax.jit(jax.vmap(Jq.queue_push))
     adv = jax.jit(jax.vmap(Jq.queue_advance, in_axes=(0, None, None)))
     for step in range(14):
@@ -236,14 +237,15 @@ def test_anim_step_matches_jax(with_sfx):
            [[0, 0, 0, 1], [0, 0.7071, 0, 0.7071]])]], 3)
     acfg = Jsys.default_state_map(names)
     sfx = Jsys.anim_sfx_from_names(names) if with_sfx else None
-    tsfx = Tsys.anim_sfx_from_names(names) if with_sfx else None
-    assert_tree_equal(jnp_tree(acfg), Tsys.default_state_map(names))
+    tsfx = Tsys.anim_sfx_from_names(names, device="cpu") if with_sfx else None
+    assert_tree_equal(jnp_tree(acfg), Tsys.default_state_map(names, "cpu"))
     if with_sfx:
         assert_tree_equal(jnp_tree(sfx), tsfx)
     E, C = 2, 2
     jinst = jax.tree.map(lambda x: jnp.broadcast_to(x, (E, *x.shape)),
                          Jsys.anim_instances_init(C, with_sfx))
-    tinst = ttb.replicate_state(Tsys.anim_instances_init(C, with_sfx), E)
+    tinst = ttb.replicate_state(
+        Tsys.anim_instances_init(C, with_sfx, device="cpu"), E)
     def one(i, s):
         return Jsys.anim_step(acfg, sk, jlib, i, s, jnp.float32(0.15),
                               sfx=sfx)
@@ -262,7 +264,8 @@ def test_anim_step_matches_jax(with_sfx):
 
 
 def test_build_demo_rig_matches_jax():
-    assert_tree_equal(jnp_tree(jtb.build_demo_rig()), ttb.build_demo_rig())
+    assert_tree_equal(jnp_tree(jtb.build_demo_rig()),
+                      ttb.build_demo_rig(device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +291,10 @@ def test_game_update_matches_jax():
         connect_radius=jnp.float32(2.0))
     tcfg = to_port(jcfg)
     assert_tree_equal(jnp_tree(Jgl.game_config_empty(K, E)),
-                      Tgl.game_config_empty(K, E))
+                      Tgl.game_config_empty(K, E, device="cpu"))
     jgs = jax.tree.map(lambda x: jnp.broadcast_to(x, (B, *x.shape)),
                        Jgl.game_state_init(K, C))
-    tgs = ttb.replicate_state(Tgl.game_state_init(K, C), B)
+    tgs = ttb.replicate_state(Tgl.game_state_init(K, C, device="cpu"), B)
     assert_tree_equal(jnp_tree(jgs), tgs)
     upd = jax.jit(jax.vmap(lambda s, g, p, y, n: Jgl.game_update(
         jcfg, s, g, p, y, n)))

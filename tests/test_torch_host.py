@@ -15,7 +15,7 @@ from test_torch_common import COMPOSED_SCENE, assert_tree_equal, jnp_tree
 @pytest.fixture(scope="module")
 def built():
     J = jtb.build_testbed(**COMPOSED_SCENE)
-    T = ttb.build_testbed(**COMPOSED_SCENE)
+    T = ttb.build_testbed(**COMPOSED_SCENE, device="cpu")
     return J, T, jtb.testbed_models(J), ttb.testbed_models(T)
 
 
@@ -64,6 +64,6 @@ def test_build_render_tables_exact(built, static_split):
         tm, te.model_id, te.active,
         entity_edge_id=tsr.default_edge_ids(te.active, te.body_is_char),
         entity_shadow_static=tsr.shadow_static_mask(te)
-        if static_split else None)
+        if static_split else None, device="cpu")
     assert jsr.kernel_attrs_ok(jr) == tsr.kernel_attrs_ok(tr)
     assert_tree_equal(jnp_tree(jr), to_numpy(tr), "rt")

@@ -38,7 +38,7 @@ def composed_scene():
     """Both packages' composed testbed, render tables, light and options
     (the flagship configuration of bench.py:544-625 at test size)."""
     J = jtb.build_testbed(**COMPOSED_SCENE)
-    T = ttb.build_testbed(**COMPOSED_SCENE)
+    T = ttb.build_testbed(**COMPOSED_SCENE, device="cpu")
     ent = J.cfg.entities
     jrt = jsr.build_render_tables(
         jtb.testbed_models(J), np.asarray(ent.model_id),
@@ -50,7 +50,7 @@ def composed_scene():
     trt = tsr.build_render_tables(
         ttb.testbed_models(T), te.model_id, te.active,
         entity_edge_id=tsr.default_edge_ids(te.active, te.body_is_char),
-        entity_shadow_static=tsr.shadow_static_mask(te))
+        entity_shadow_static=tsr.shadow_static_mask(te), device="cpu")
     d = jnp.array([-0.4, -0.8, -0.4])
     le = lights_empty(1)
     jl = le._replace(direction=le.direction.at[0].set(d / jnp.linalg.norm(d)),

@@ -21,7 +21,7 @@ B, FRAMES = 3, 5
 @pytest.fixture(scope="module")
 def trajectories():
     J = build_testbed(**ENTRY_SCENE)
-    T = ttb.build_testbed(**ENTRY_SCENE)
+    T = ttb.build_testbed(**ENTRY_SCENE, device="cpu")
     step = jax.jit(jax.vmap(
         lambda s, i: jstep(J.cfg, s, i, camera_occlusion=True)))
     rng = np.random.default_rng(0)
