@@ -13,9 +13,9 @@ Phases, one or more lines each:
 3. parity — K1 (raster_tile) and K2 (raster_depth) against their plain
    PyTorch versions on the same inputs: the kernel-parity scene at 128²,
    then the slice's own first-frame records (env 0's G-buffer records, its
-   4-cascade shadow atlas and the 1024² static bake). Bar: tid agreement
-   ≥ 99.5% and depth within 1e-4 where ids agree (K2: depth within 1e-4
-   on ≥ 99.5% of pixels).
+   4-cascade shadow atlas and the 1024² static bake), and in phase 5 all
+   64 envs at frame 11. Bar: bit-exact (and, as the reference's own bar,
+   tid agreement ≥ 99.5% and depth within 1e-4 where ids agree).
 4. headless — engine_step at 4,096 envs on the headline testbed scene:
    1 warm-up + 30 timed frames, ms/frame and env-steps/s.
 5. slice — step_and_render at 64 envs × 256² (game_step with the game
@@ -24,9 +24,12 @@ Phases, one or more lines each:
    and the composed frame with the baked static shadow): 1 warm-up + 10
    timed frames, ms/frame, env-fps, peak memory, clusters/tiles at
    capacity, each kernel timed alone next to its plain version and its
-   bound (records walked counted on the plain version's walk), launch
-   counts of the driven run, and an end-to-end check of two envs' images
-   against the plain CPU path.
+   bound (what these inputs need, counted on the plain version's walk:
+   records walked, covered pixel-record pairs, wins; beside them the
+   brute-force tests and the kernel's tests after its per-warp reject),
+   the input preparation (kernel_inputs) of each, launch counts of the
+   driven run, and an end-to-end check of two envs' images against the
+   plain CPU path.
 6. CA — K3 (ca2d_run_fused) bit-exact against its plain version ca2d_run
    for 5 rules on every route, each line with its route, cluster size and
    launches per call: 4 shapes (64², 96×160, 37×53, 256² × 1,000),
@@ -75,21 +78,12 @@ def main() -> int:
 
     from clap_tpu_torch import cuda_build
     from clap_tpu_torch import mathx as mx
-    from clap_tpu_torch.anim.system import anim_instances_init
     from clap_tpu_torch.bridge import tree_map
     from clap_tpu_torch.engine.frame import SceneRenderer, step_and_render
-    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
-    from clap_tpu_torch.engine.gamelogic import (game_config_empty,
-                                                 game_state_init)
     from clap_tpu_torch.engine.step import engine_step, inputs_zero
     from clap_tpu_torch.render import raster as R
-    from clap_tpu_torch.render.lights import lights_empty
-    from clap_tpu_torch.render.pipeline import (RenderOptions, shadow_records,
-                                                surface_records)
-    from clap_tpu_torch.render.scenerender import (
-        bake_static_shadow, build_render_tables, default_edge_ids,
-        kernel_attrs_ok, shadow_static_mask, static_shadow_geometry)
-    from clap_tpu_torch.render.view import cascade_subviews
+    from clap_tpu_torch.render.scenerender import bake_static_shadow, \
+        kernel_attrs_ok
     from clap_tpu_torch.scene import testbed as tbm
     from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
 
@@ -157,7 +151,8 @@ def main() -> int:
         log(f"phase 3 parity {name}: K1 tid agreement {agree:.6f}, depth "
             f"max err {derr:.3g} where ids agree, planes max err {err:.3g}"
             f", bit-exact {exact}")
-        require(agree >= 0.995 and derr <= 1e-4, f"K1 parity on {name}")
+        require(agree >= 0.995 and derr <= 1e-4 and exact,
+                f"K1 bit-exact on {name}")
         return k, r, err
 
     def check_depth(name, args):
@@ -165,9 +160,10 @@ def main() -> int:
         sync()
         r = R.raster_depth_ref(*args)
         agree, err = cmp_depth(k, r)
+        exact = bool(torch.equal(k, r))
         log(f"phase 3 parity {name}: K2 depth agreement {agree:.6f}, max "
-            f"err {err:.3g}, bit-exact {bool(torch.equal(k, r))}")
-        require(agree >= 0.995, f"K2 parity on {name}")
+            f"err {err:.3g}, bit-exact {exact}")
+        require(agree >= 0.995 and exact, f"K2 bit-exact on {name}")
         return k, r, err
 
     # ---------------------------------------------------------------- 3a
@@ -214,41 +210,11 @@ def main() -> int:
     del st, ins, tb
 
     # ---------------------------------------------------------------- 5
-    tb = tbm.build_testbed(seed=42, side=64.0, nr_v=128, n_dynamic=8,
-                           max_entities=96, n_chars=2, terrain_chunks=4,
-                           device=dev)
-    ent = tb.cfg.entities
-    rt = build_render_tables(
-        tbm.testbed_models(tb, skinned_chars=False, textured=False),
-        ent.model_id, ent.active,
-        entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
-        entity_shadow_static=shadow_static_mask(ent), device=dev)
+    w5 = build_slice(dev)
+    tb, ent, rt, lights, opts = (w5[k] for k in ("tb", "ent", "rt", "lights",
+                                                 "opts"))
     require(kernel_attrs_ok(rt), "kernel_attrs eligibility")
-    lights = lights_empty(1, device=dev)
-    d = torch.tensor([-0.4, -0.8, -0.4], device=dev)
-    lights.direction[0] = d / torch.linalg.vector_norm(d)
-    lights.color[0] = torch.tensor([1.0, 0.95, 0.9], device=dev)
-    lights.is_dir[0] = True
-    lights.active[0] = True
-    opts = RenderOptions(width=RES, height=RES, shadow_size=256,
-                         film_grain=0.0, record_compact=8192,
-                         raster_cap=2048, kernel_attrs=True)
-    # the game wiring of bench.py:546-559: the terrain is a permanent
-    # switch, both characters animate on the demo rig
-    sk, lib, acfg = tbm.build_demo_rig(device=dev)
-    gcfg = game_config_empty(1, 96, device=dev)._replace(
-        switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
-        switch_valid=torch.tensor([True], device=dev),
-        switch_permanent=torch.tensor([True], device=dev))
-    gw = GameWorld(scene=tb.cfg, game=gcfg, anim=acfg, anim_sk=sk,
-                   anim_lib=lib)
-    gs = tbm.replicate_state(GameSessionState(
-        engine=tb.state0, game=game_state_init(1, 2, device=dev),
-        anim=anim_instances_init(2, device=dev),
-        joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), N_SLICE)
-    ins = tree_map(lambda x: x.expand(N_SLICE, *x.shape).clone(),
-                   inputs_zero(2, device=dev))
-    ins.motion[:, 0, 0] = 1.0
+    gw, gs, ins = w5["gw"], w5["gs"], w5["ins"]
     frame0 = gs.engine.frame.clone()
     torch.cuda.reset_peak_memory_stats()
 
@@ -288,10 +254,10 @@ def main() -> int:
     require(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")
 
-    geom = renderer.geometry(st)
+    geom, rec, binned, srec, sbin, (w, h, th, tw) = frame_records(
+        renderer, opts, lights, st)
     nval = geom.comp_valid.sum(-1) // R.CLUSTER
     at_cap = int((nval >= opts.record_compact // R.CLUSTER).sum())
-    rec, binned, _ = surface_records(opts, geom)
     stats = R.bin_stats(binned)
     log(f"phase 5 slice: {N_SLICE} envs x {RES}^2, {dt * 1e3:.2f} ms/frame, "
         f"{N_SLICE / dt:.1f} env-fps, warm-up frame (bake included) "
@@ -308,29 +274,31 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 3b
     st0 = tree_map(lambda x: x[:1], st1)
-    views0 = renderer.views(st0)
-    g0 = renderer.geometry(st0, views0)
-    rec0, binned0, _ = surface_records(opts, g0)
+    _, rec0, binned0, srec0, sbin0, d0 = frame_records(renderer, opts,
+                                                       lights, st0)
     check_tile("slice frame 1 env 0 G-buffer 256^2",
                R.kernel_inputs(rec0, binned0, RES, RES))
-    casc, _ = cascade_subviews(views0, renderer.proj, lights.direction[0],
-                               0.1, 200.0)
-    srec, sbin, (w, h, th, tw) = shadow_records(opts, g0, casc.view,
-                                                casc.proj)
-    check_depth(f"slice frame 1 env 0 cascade atlas {h}x{w}",
-                R.kernel_inputs(srec, sbin, w, h, th, tw, depth_only=True))
-    gs, sv, _ = static_shadow_geometry(rt, tb.state0.mx, lights.direction[0])
-    brec, bbin, (w, h, th, tw) = shadow_records(
-        RenderOptions(shadow_size=1024), gs, sv.view[None], sv.proj[None])
-    check_depth(f"static bake {h}x{w}",
-                R.kernel_inputs(brec, bbin, w, h, th, tw, depth_only=True))
+    check_depth(f"slice frame 1 env 0 cascade atlas {d0[1]}x{d0[0]}",
+                R.kernel_inputs(srec0, sbin0, *d0, depth_only=True))
+    brec, bbin, db = bake_records(rt, tb, lights)
+    check_depth(f"static bake {db[1]}x{db[0]}",
+                R.kernel_inputs(brec, bbin, *db, depth_only=True))
 
     # ------------------------------------------------ 5b kernel timing
     def time_ms(fn, args, reps):
+        """Device ms per call: a spin on the stream holds the start event
+        until every call is queued, so the host's launch time between
+        short kernels is not counted (where a call waits on the device
+        itself, as the plain walks do, the host's pace still shows)."""
         fn(*args)
+        sync()
+        t0 = time.perf_counter()
+        fn(*args)
+        host = time.perf_counter() - t0
         sync()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(min(1.5 * host * reps + 1e-3, 2.0) * 2e9))
         e0.record()
         for _ in range(reps):
             fn(*args)
@@ -341,10 +309,6 @@ def main() -> int:
     tile_args = R.kernel_inputs(rec, binned, RES, RES)
     _, _, tile_err = check_tile(f"slice frame 11 all {N_SLICE} envs",
                                 tile_args)
-    casc, _ = cascade_subviews(renderer.views(st), renderer.proj,
-                               lights.direction[0], 0.1, 200.0)
-    srec, sbin, (w, h, th, tw) = shadow_records(opts, geom, casc.view,
-                                                casc.proj)
     depth_args = R.kernel_inputs(srec, sbin, w, h, th, tw, depth_only=True)
     _, _, depth_err = check_depth(f"slice frame 11 all {N_SLICE} envs "
                                   f"cascade atlas", depth_args)
@@ -352,18 +316,27 @@ def main() -> int:
     k1_plain = time_ms(R.raster_tile_ref, tile_args, 3)
     k2_ms = time_ms(R.raster_depth, depth_args, 20)
     k2_plain = time_ms(R.raster_depth_ref, depth_args, 3)
+    # the input preparation of each launch (coefficient rows, counts)
+    k1_prep = time_ms(R.kernel_inputs, (rec, binned, RES, RES), 20)
+    k2_prep = time_ms(lambda: R.kernel_inputs(srec, sbin, w, h, th, tw,
+                                              depth_only=True), (), 20)
     k1_bound = walk_bound(R, R.raster_tile_ref, tile_args, R.NCOEF, 5, 12)
     k2_bound = walk_bound(R, R.raster_depth_ref, depth_args, R.NCOEF_DEPTH,
                           1, 0)
     log(f"phase 5 kernel timing ({N_SLICE} envs, frame 11 inputs): K1 "
         f"raster_tile {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms; K2 "
-        f"raster_depth {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms ({smi})")
+        f"raster_depth {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms; input "
+        f"preparation (kernel_inputs) K1 {k1_prep:.3f} ms, K2 "
+        f"{k2_prep:.3f} ms ({smi})")
     for name, (bms, by, n) in (("K1", k1_bound), ("K2", k2_bound)):
         log(f"phase 5 {name} bound: {bms:.4f} ms ({by}); {n['records']} "
             f"records walked ({n['small']} of the tiles' lists, "
-            f"{n['big']} of the big lists, read once), {n['tests']} "
-            f"pixel-record tests, {n['wins']} wins; {n['bytes']} B, "
-            f"{n['flops']} flop")
+            f"{n['big']} of the big lists, read once), {n['covered']} "
+            f"covered pixel-record pairs, {n['wins']} wins; {n['bytes']} B, "
+            f"{n['flops']} flop; pixel-record tests: brute force "
+            f"{n['tests']}, the kernel after its per-warp reject "
+            f"{n['kernel_tests']} ({n['kept']} of {n['warp_records']} "
+            f"warp-records kept)")
 
     # ------------------------------------- 5c end-to-end vs the CPU path
     cpu_renderer = SceneRenderer(
@@ -417,18 +390,107 @@ def main() -> int:
     return 0
 
 
+def build_slice(dev, n_envs=N_SLICE):
+    """The slice's world on ``dev``: the composed testbed of bench.py:544-625
+    (2 chars, 4 terrain chunks, 96 entities, record_compact 8192, raster_cap
+    2048, kernel_attrs, one directional light) with the game wiring of
+    bench.py:546-559 (the terrain a permanent switch, the demo rig on both
+    characters), ``n_envs`` envs at their first state, moving +x. Returns a
+    dict: tb, ent, rt, lights, opts, gw, gs, ins."""
+    import torch
+
+    from clap_tpu_torch.anim.system import anim_instances_init
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
+    from clap_tpu_torch.engine.gamelogic import (game_config_empty,
+                                                 game_state_init)
+    from clap_tpu_torch.engine.step import inputs_zero
+    from clap_tpu_torch.render.lights import lights_empty
+    from clap_tpu_torch.render.pipeline import RenderOptions
+    from clap_tpu_torch.render.scenerender import (build_render_tables,
+                                                   default_edge_ids,
+                                                   shadow_static_mask)
+    from clap_tpu_torch.scene import testbed as tbm
+
+    tb = tbm.build_testbed(seed=42, side=64.0, nr_v=128, n_dynamic=8,
+                           max_entities=96, n_chars=2, terrain_chunks=4,
+                           device=dev)
+    ent = tb.cfg.entities
+    rt = build_render_tables(
+        tbm.testbed_models(tb, skinned_chars=False, textured=False),
+        ent.model_id, ent.active,
+        entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
+        entity_shadow_static=shadow_static_mask(ent), device=dev)
+    lights = lights_empty(1, device=dev)
+    d = torch.tensor([-0.4, -0.8, -0.4], device=dev)
+    lights.direction[0] = d / torch.linalg.vector_norm(d)
+    lights.color[0] = torch.tensor([1.0, 0.95, 0.9], device=dev)
+    lights.is_dir[0] = True
+    lights.active[0] = True
+    opts = RenderOptions(width=RES, height=RES, shadow_size=256,
+                         film_grain=0.0, record_compact=8192,
+                         raster_cap=2048, kernel_attrs=True)
+    sk, lib, acfg = tbm.build_demo_rig(device=dev)
+    gcfg = game_config_empty(1, 96, device=dev)._replace(
+        switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
+        switch_valid=torch.tensor([True], device=dev),
+        switch_permanent=torch.tensor([True], device=dev))
+    gw = GameWorld(scene=tb.cfg, game=gcfg, anim=acfg, anim_sk=sk,
+                   anim_lib=lib)
+    gs = tbm.replicate_state(GameSessionState(
+        engine=tb.state0, game=game_state_init(1, 2, device=dev),
+        anim=anim_instances_init(2, device=dev),
+        joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), n_envs)
+    ins = tree_map(lambda x: x.expand(n_envs, *x.shape).clone(),
+                   inputs_zero(2, device=dev))
+    ins.motion[:, 0, 0] = 1.0
+    return dict(tb=tb, ent=ent, rt=rt, lights=lights, opts=opts, gw=gw,
+                gs=gs, ins=ins)
+
+
+def frame_records(renderer, opts, lights, st):
+    """The records and bins of state ``st``'s main pass and cascade atlas:
+    (geometry, rec, binned, srec, sbin, (w, h, th, tw))."""
+    from clap_tpu_torch.render.pipeline import shadow_records, surface_records
+    from clap_tpu_torch.render.view import cascade_subviews
+
+    views = renderer.views(st)
+    geom = renderer.geometry(st, views)
+    rec, binned, _ = surface_records(opts, geom)
+    casc, _ = cascade_subviews(views, renderer.proj, lights.direction[0],
+                               0.1, 200.0)
+    srec, sbin, dims = shadow_records(opts, geom, casc.view, casc.proj)
+    return geom, rec, binned, srec, sbin, dims
+
+
+def bake_records(rt, tb, lights):
+    """The 1024² static shadow bake's records and bins: (rec, binned, (w,
+    h, th, tw))."""
+    from clap_tpu_torch.render.pipeline import RenderOptions, shadow_records
+    from clap_tpu_torch.render.scenerender import static_shadow_geometry
+
+    g, sv, _ = static_shadow_geometry(rt, tb.state0.mx, lights.direction[0])
+    return shadow_records(RenderOptions(shadow_size=1024), g, sv.view[None],
+                          sv.proj[None])
+
+
 def walk_bound(R, plain, args, ncoef, planes, win_flop):
     """The least time of a K1 / K2 launch on ``args``, from the plain
-    version's walk, instrumented: the records each list walks up to its
-    early-out. Bytes: the counts, the records of the tiles' lists walked
-    and of each env's big list, read once, and the output planes written
-    once, at 3.35 TB/s. Flops: per pixel and record walked, the four planes
-    of the test (16), and ``win_flop`` per win, at 67 TFLOP/s (float32
-    outside the tensor cores). Returns (ms, "bytes" | "operations", counts)."""
+    version's walk, instrumented, counting what these inputs need: the
+    records each list walks up to its early-out. Bytes: the counts, the
+    cluster ids and the records walked (of the tiles' lists and of each
+    env's big list, read once), and the output planes written once, at
+    3.35 TB/s. Flops: 16 per covered pixel-record pair (edges >= 0 and z in
+    [-1, 1], the pairs any correct walk must depth-test) and ``win_flop``
+    per win, at 67 TFLOP/s (float32 outside the tensor cores). Also counts
+    the brute-force tests (every pixel x every record walked) and the tests
+    the kernel makes after its per-warp reject (``_warp_keep_ref``).
+    Returns (ms, "bytes" | "operations", counts)."""
     import torch
 
     walk = R._walk_ref
-    n = {"records": 0, "tests": 0, "wins": 0}
+    n = {"records": 0, "tests": 0, "wins": 0, "covered": 0, "kept": 0,
+         "warp_records": 0, "kernel_tests": 0}
 
     def counted(*a):
         step = a[-1]
@@ -439,6 +501,12 @@ def walk_bound(R, plain, args, ncoef, planes, win_flop):
             n["records"] += rows
             n["tests"] += rows * px.shape[1] * px.shape[2]
             n["wins"] += int((new[0] < carry[0]).sum())
+            n["covered"] += int(torch.isfinite(
+                R._covered_z(slab, nv, px, py)).sum())
+            keep = R._warp_keep_ref(slab, nv, px, py, carry[0])
+            n["kept"] += int(keep.sum())
+            n["warp_records"] += rows * keep.shape[-1]
+            n["kernel_tests"] += int(keep.sum()) * 32 * (px.shape[1] // 2)
             return new
         return walk(*a[:-1], step_counted)
 
@@ -447,14 +515,15 @@ def walk_bound(R, plain, args, ncoef, planes, win_flop):
         out = plain(*args)
     finally:
         R._walk_ref = walk
-    counts, sub = args[0], args[7]
+    counts, sub, cluster = args[3], args[8], args[10]
     big = counts[..., sub]                       # per env and tile
     n["big"] = int(big[:, 0].sum())              # each env's list, once
     n["small"] = n["records"] - int(big.sum()) * sub
     hw = (out[0] if isinstance(out, tuple) else out).numel()
-    n["bytes"] = counts.numel() * 4 + (n["small"] + n["big"]) * ncoef * 4 \
-        + planes * hw * 4
-    n["flops"] = 16 * n["tests"] + win_flop * n["wins"]
+    walked = n["small"] + n["big"]
+    n["bytes"] = counts.numel() * 4 + walked // cluster * 4 \
+        + walked * ncoef * 4 + planes * hw * 4
+    n["flops"] = 16 * n["covered"] + win_flop * n["wins"]
     t_bytes, t_ops = n["bytes"] / 3.35e12 * 1e3, n["flops"] / 67e12 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                  else "operations"), n

@@ -25,9 +25,9 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 
 def _bind_raster(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.raster_tile_launch.argtypes = [P] * 8 + [I] * 11 + [P]
+    lib.raster_tile_launch.argtypes = [P] * 9 + [I] * 13 + [P]
     lib.raster_tile_launch.restype = I
-    lib.raster_depth_launch.argtypes = [P] * 4 + [I] * 11 + [P]
+    lib.raster_depth_launch.argtypes = [P] * 5 + [I] * 13 + [P]
     lib.raster_depth_launch.restype = I
 
 

@@ -11,10 +11,12 @@
 3. **Kernels**: K1 (``raster_tile``) walks each (env, tile, sub-column)
    list in chunks of coefficient records and keeps the nearest covering
    record per pixel with its float id and three attribute planes; K2
-   (``raster_depth``) keeps the minimum depth only. Both are hand-written
-   CUDA (csrc/raster.cu) on CUDA tensors; on CPU tensors the same
-   functions run their plain PyTorch versions (``raster_tile_ref`` /
-   ``raster_depth_ref``).
+   (``raster_depth``) keeps the minimum depth only. Both read the
+   coefficient cluster rows through the binning's id lists (no per-tile
+   copy). Both are hand-written CUDA (csrc/raster.cu) on CUDA tensors; on
+   CPU tensors the same functions run their plain PyTorch versions
+   (``raster_tile_ref`` / ``raster_depth_ref``), which gather each tile's
+   records and walk them.
 
 Depth convention: NDC z in [-1, 1], smaller = closer. Background depth =
 +inf, tri id = -1. Every batched function takes a leading env axis B.
@@ -723,16 +725,33 @@ def _walk_ref(counts, trec, brec, width, tile_h, tile_w, sub, chunk,
     return [planes(c) for c in carry]
 
 
-def raster_tile_ref(counts, trec, brec, width: int, height: int,
-                    tile_h: int, tile_w: int, sub: int, chunk: int):
+def _gather_lists(crec, tile_list, big_idx, counts, ncoef):
+    """The per-tile record copies the TPU kernel walked, gathered through
+    the id lists: trec (B, n_tiles, sub·cap, NC), brec (B, n_big, NC)."""
+    B, n_tiles = counts.shape[:2]
+    envs = torch.arange(B, device=crec.device)
+    trec = crec[envs[:, None, None], tile_list.long()].reshape(
+        B, n_tiles, -1, ncoef)
+    brec = crec[envs[:, None], big_idx.long()].reshape(B, -1, ncoef)
+    return trec, brec
+
+
+def raster_tile_ref(crec, tile_list, big_idx, counts, width: int,
+                    height: int, tile_h: int, tile_w: int, sub: int,
+                    chunk: int, cluster: int):
     """Plain PyTorch version of K1 (same signature as ``raster_tile``).
 
-    counts (B, n_tiles, sub+1) i32 — per sub-list record counts, then the
-    big-list record count; trec (B, n_tiles, sub·cap, 24) f32 per-tile
-    coefficient records; brec (B, n_big, 24) f32 big list. Returns
-    (depth, tid, d0, d1, s), each (B, Hp, Wp) f32: nearest covering record
-    per pixel (a later record must be strictly nearer, so the first record
-    wins ties), +inf / -1 / 0 / 0 / 1 where nothing covers."""
+    crec (B, Tc, cluster·24) f32 coefficient cluster rows
+    (``records_to_coeffs``); tile_list (B, n_tiles·sub, cap_c) i32 cluster
+    ids of each sub-list and big_idx (B, n_big_c) i32 of the big list
+    (``bin_triangles``); counts (B, n_tiles, sub+1) i32 — per sub-list
+    record counts, then the big-list record count. Gathers each tile's
+    records through its list, then walks them. Returns (depth, tid, d0, d1,
+    s), each (B, Hp, Wp) f32: nearest covering record per pixel (a later
+    record must be strictly nearer, so the first record wins ties), +inf /
+    -1 / 0 / 0 / 1 where nothing covers."""
+    trec, brec = _gather_lists(crec, tile_list, big_idx, counts, NCOEF)
+
     def init(dev):
         return [torch.tensor(v, dtype=torch.float32, device=dev)
                 for v in (INF, -1.0, 0.0, 0.0, 1.0)]
@@ -758,11 +777,16 @@ def raster_tile_ref(counts, trec, brec, width: int, height: int,
                            chunk, 22, init, step))
 
 
-def raster_depth_ref(counts, trec, brec, width: int, height: int,
-                     tile_h: int, tile_w: int, sub: int, chunk: int):
+def raster_depth_ref(crec, tile_list, big_idx, counts, width: int,
+                     height: int, tile_h: int, tile_w: int, sub: int,
+                     chunk: int, cluster: int):
     """Plain PyTorch version of K2 (same signature as ``raster_depth``):
-    16-float depth records (cluster zmin in col 12); returns the minimum
-    covered z per pixel, (B, Hp, Wp), +inf where nothing covers."""
+    16-float depth cluster rows (``records_to_coeffs_depth``, cluster zmin
+    in col 12) read through the lists; returns the minimum covered z per
+    pixel, (B, Hp, Wp), +inf where nothing covers."""
+    trec, brec = _gather_lists(crec, tile_list, big_idx, counts,
+                               NCOEF_DEPTH)
+
     def init(dev):
         return [torch.tensor(INF, device=dev)]
 
@@ -774,37 +798,106 @@ def raster_depth_ref(counts, trec, brec, width: int, height: int,
                      12, init, step)[0]
 
 
-def _kernel_args(counts, trec, brec, width, height, tile_h, tile_w, sub,
-                 chunk, ncoef):
-    """Validate a kernel launch; returns (B, n_tiles, ntx, cap, n_big, Hp,
-    Wp)."""
+def _warp_reject_ref(slab, rect, depth_max):
+    """Torch copy of the kernels' per-warp reject (csrc/raster.cu
+    ``rejected``), in float64 as there: True where a coefficient record
+    can win no pixel of a rectangle. slab (..., NC) f32 records; rect
+    (..., 4) its pixel-centre bounds (x0, x1, y0, y1), 0 < x0 ≤ x1,
+    0 < y0 ≤ y1; depth_max (...) the rectangle's largest depth; all
+    broadcast. A record is rejected when some edge's largest value over
+    the corners is below -m, or its z plane's smallest value there minus m
+    is ≥ depth_max, with m = 2^-22·(|a|·x1 + |b|·y1 + |c|) + 2^-120 —
+    more than the rounding of the per-pixel (a·px + b·py) + c."""
+    r = slab.double()
+    x0, x1, y0, y1 = rect.double().unbind(-1)
+
+    def margin(a, b, c):
+        return 2.0 ** -22 * (a.abs() * x1 + b.abs() * y1 + c.abs()) \
+            + 2.0 ** -120
+
+    out = None
+    for k in range(3):
+        a, b, c = r[..., 3 * k], r[..., 3 * k + 1], r[..., 3 * k + 2]
+        hi = a * torch.where(a > 0, x1, x0) + b * torch.where(b > 0, y1, y0) \
+            + c
+        rej = hi < -margin(a, b, c)
+        out = rej if out is None else out | rej
+    a, b, c = r[..., 9], r[..., 10], r[..., 11]
+    lo = a * torch.where(a > 0, x0, x1) + b * torch.where(b > 0, y0, y1) + c
+    return out | (lo - margin(a, b, c) >= depth_max.double())
+
+
+def _warp_keep_ref(slab, n_valid, px, py, depth):
+    """The records of a staged chunk that each warp of the kernels shades:
+    (A, chunk, 8) bool for slab (A, chunk, NC), n_valid (A,) and the
+    lists' (A, th, 128) lattices px / py and depth planes before the
+    chunk. Warp w owns rows (w // 4)·th/2 … and columns (w % 4)·32 … of
+    the sub-tile, as in csrc/raster.cu."""
+    A, th, tw = px.shape
+    ppt = th // 2
+
+    def blocks(t):                                   # (A, 8, ppt·32)
+        return t.reshape(A, 2, ppt, 4, 32).permute(0, 1, 3, 2, 4) \
+            .reshape(A, 8, ppt * 32)
+
+    bx, by = blocks(px), blocks(py)
+    rect = torch.stack([bx.amin(-1), bx.amax(-1), by.amin(-1),
+                        by.amax(-1)], dim=-1)          # (A, 8, 4)
+    rej = _warp_reject_ref(slab[:, :, None], rect[:, None],
+                           blocks(depth).amax(-1)[:, None])
+    rows = torch.arange(slab.shape[1], device=slab.device)
+    return ~rej & (rows[None, :] < n_valid[:, None])[..., None]
+
+
+KERNEL_MAX_CHUNK = 32    # the kernels test one record per lane of a warp
+
+
+def _kernel_args(crec, tile_list, big_idx, counts, width, height, tile_h,
+                 tile_w, sub, chunk, cluster, ncoef):
+    """Validate a kernel launch; returns (B, Tc, cap_c, n_big_c, n_tiles,
+    ntx, Hp, Wp). Raises on anything the kernels do not take."""
     B, n_tiles = counts.shape[:2]
     ntx = cdiv(width, tile_w)
     nty = cdiv(height, tile_h)
-    if n_tiles != ntx * nty or counts.shape[2] != sub + 1:
+    if counts.dim() != 3 or n_tiles != ntx * nty \
+            or counts.shape[2] != sub + 1:
         raise ValueError(f"counts {tuple(counts.shape)} do not match a "
                          f"{ntx}x{nty} tile grid with sub={sub}")
-    if counts.dtype != torch.int32 or trec.dtype != torch.float32 \
-            or brec.dtype != torch.float32:
-        raise TypeError("counts must be int32, records float32")
-    if trec.dim() != 4 or trec.shape[:2] != (B, n_tiles) \
-            or trec.shape[3] != ncoef or brec.dim() != 3 \
-            or brec.shape[0] != B or brec.shape[2] != ncoef:
-        raise ValueError(f"record shapes {tuple(trec.shape)} / "
-                         f"{tuple(brec.shape)} do not match")
-    if not (counts.is_cuda and trec.is_cuda and brec.is_cuda):
-        raise ValueError("kernel inputs must all be CUDA tensors")
-    if not (counts.is_contiguous() and trec.is_contiguous()
-            and brec.is_contiguous()):
-        raise ValueError("kernel inputs must be contiguous")
-    cap = trec.shape[2] // sub
-    n_big = brec.shape[1]
+    if crec.dtype != torch.float32 or any(
+            t.dtype != torch.int32 for t in (tile_list, big_idx, counts)):
+        raise TypeError("crec must be float32; tile_list, big_idx and "
+                        "counts int32")
+    if crec.dim() != 3 or crec.shape[0] != B or crec.shape[1] == 0 \
+            or crec.shape[2] != cluster * ncoef or tile_list.dim() != 3 \
+            or tile_list.shape[:2] != (B, n_tiles * sub) \
+            or big_idx.dim() != 2 or big_idx.shape[0] != B:
+        raise ValueError(
+            f"crec {tuple(crec.shape)}, tile_list {tuple(tile_list.shape)}, "
+            f"big_idx {tuple(big_idx.shape)} do not match B={B}, "
+            f"{n_tiles}x{sub} lists, cluster rows of {cluster}x{ncoef}")
+    if cluster <= 0 or chunk <= 0 or chunk % cluster \
+            or chunk > KERNEL_MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} must be whole cluster rows "
+                         f"(cluster {cluster}) and at most "
+                         f"{KERNEL_MAX_CHUNK} records")
+    cap = tile_list.shape[2] * cluster
+    n_big = big_idx.shape[1] * cluster
     if cap % chunk or n_big % chunk:
         raise ValueError(f"chunk {chunk} must divide the list capacity "
                          f"{cap} and the big-list size {n_big}")
-    if (tile_h * (tile_w // sub)) not in (1024, 2048, 4096):
-        raise ValueError(f"unsupported sub-tile {tile_h}x{tile_w // sub}")
-    return B, n_tiles, ntx, cap, n_big, nty * tile_h, ntx * tile_w
+    if tile_w != sub * 128 or tile_h not in (8, 16, 32):
+        raise ValueError(f"unsupported tile {tile_h}x{tile_w} with sub="
+                         f"{sub}: sub-columns are 128 px, 8-32 rows")
+    tensors = (crec, tile_list, big_idx, counts)
+    if not all(t.is_cuda and t.device == crec.device for t in tensors):
+        raise ValueError("kernel inputs must all be CUDA tensors on one "
+                         "device")
+    if not all(t.is_contiguous() for t in tensors) \
+            or crec.data_ptr() % 16:
+        raise ValueError("kernel inputs must be contiguous, crec 16-byte "
+                         "aligned")
+    return (B, crec.shape[1], tile_list.shape[2], big_idx.shape[1], n_tiles,
+            ntx, nty * tile_h, ntx * tile_w)
 
 
 def _ptr(t):
@@ -816,27 +909,33 @@ def _check(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def raster_tile(counts, trec, brec, width: int, height: int,
-                tile_h: int, tile_w: int, sub: int, chunk: int):
+def _on_cpu(*tensors) -> bool:
+    return not any(t.is_cuda for t in tensors)
+
+
+def raster_tile(crec, tile_list, big_idx, counts, width: int, height: int,
+                tile_h: int, tile_w: int, sub: int, chunk: int,
+                cluster: int):
     """K1, the main G-buffer tile walk (replaces
     clap_tpu/render/raster.py ``_raster_tile_kernel``). Signature and
     result as ``raster_tile_ref``; CUDA tensors launch the hand-written
-    kernel (one CTA per env, tile and sub-column), CPU tensors run the
-    plain version."""
-    if not trec.is_cuda:
-        return raster_tile_ref(counts, trec, brec, width, height, tile_h,
-                               tile_w, sub, chunk)
+    kernel (one CTA per env, tile and sub-column, reading its records
+    through the lists), CPU tensors run the plain version."""
+    if _on_cpu(crec, tile_list, big_idx, counts):
+        return raster_tile_ref(crec, tile_list, big_idx, counts, width,
+                               height, tile_h, tile_w, sub, chunk, cluster)
     from ..cuda_build import load_lib
 
-    B, n_tiles, ntx, cap, n_big, Hp, Wp = _kernel_args(
-        counts, trec, brec, width, height, tile_h, tile_w, sub, chunk, NCOEF)
+    B, Tc, cap_c, n_big_c, n_tiles, ntx, Hp, Wp = _kernel_args(
+        crec, tile_list, big_idx, counts, width, height, tile_h, tile_w, sub,
+        chunk, cluster, NCOEF)
     outs = [torch.empty((B, Hp, Wp), dtype=torch.float32,
-                        device=trec.device) for _ in range(5)]
-    stream = torch.cuda.current_stream(trec.device).cuda_stream
+                        device=crec.device) for _ in range(5)]
+    stream = torch.cuda.current_stream(crec.device).cuda_stream
     rc = load_lib("raster").raster_tile_launch(
-        _ptr(counts), _ptr(trec), _ptr(brec), *(_ptr(o) for o in outs),
-        B, n_tiles, ntx, tile_h, tile_w, sub, cap, n_big, chunk, Hp, Wp,
-        ctypes.c_void_p(stream))
+        _ptr(crec), _ptr(tile_list), _ptr(big_idx), _ptr(counts),
+        *(_ptr(o) for o in outs), B, Tc, cluster, cap_c, n_big_c, n_tiles,
+        ntx, tile_h, tile_w, sub, chunk, Hp, Wp, ctypes.c_void_p(stream))
     _check(rc, "raster_tile")
     raster_tile.launches += 1
     return tuple(outs)
@@ -845,25 +944,26 @@ def raster_tile(counts, trec, brec, width: int, height: int,
 raster_tile.launches = 0
 
 
-def raster_depth(counts, trec, brec, width: int, height: int,
-                 tile_h: int, tile_w: int, sub: int, chunk: int):
+def raster_depth(crec, tile_list, big_idx, counts, width: int, height: int,
+                 tile_h: int, tile_w: int, sub: int, chunk: int,
+                 cluster: int):
     """K2, the depth-only tile walk of the shadow passes (replaces
     clap_tpu/render/raster.py ``_raster_depth_kernel``). Signature and
     result as ``raster_depth_ref``."""
-    if not trec.is_cuda:
-        return raster_depth_ref(counts, trec, brec, width, height, tile_h,
-                                tile_w, sub, chunk)
+    if _on_cpu(crec, tile_list, big_idx, counts):
+        return raster_depth_ref(crec, tile_list, big_idx, counts, width,
+                                height, tile_h, tile_w, sub, chunk, cluster)
     from ..cuda_build import load_lib
 
-    B, n_tiles, ntx, cap, n_big, Hp, Wp = _kernel_args(
-        counts, trec, brec, width, height, tile_h, tile_w, sub, chunk,
-        NCOEF_DEPTH)
-    depth = torch.empty((B, Hp, Wp), dtype=torch.float32, device=trec.device)
-    stream = torch.cuda.current_stream(trec.device).cuda_stream
+    B, Tc, cap_c, n_big_c, n_tiles, ntx, Hp, Wp = _kernel_args(
+        crec, tile_list, big_idx, counts, width, height, tile_h, tile_w, sub,
+        chunk, cluster, NCOEF_DEPTH)
+    depth = torch.empty((B, Hp, Wp), dtype=torch.float32, device=crec.device)
+    stream = torch.cuda.current_stream(crec.device).cuda_stream
     rc = load_lib("raster").raster_depth_launch(
-        _ptr(counts), _ptr(trec), _ptr(brec), _ptr(depth),
-        B, n_tiles, ntx, tile_h, tile_w, sub, cap, n_big, chunk, Hp, Wp,
-        ctypes.c_void_p(stream))
+        _ptr(crec), _ptr(tile_list), _ptr(big_idx), _ptr(counts),
+        _ptr(depth), B, Tc, cluster, cap_c, n_big_c, n_tiles, ntx, tile_h,
+        tile_w, sub, chunk, Hp, Wp, ctypes.c_void_p(stream))
     _check(rc, "raster_depth")
     raster_depth.launches += 1
     return depth
@@ -877,10 +977,11 @@ def kernel_inputs(rec, binned, width: int, height: int, tile_h: int = None,
                   chunk: int = None, depth_only: bool = False):
     """The arguments of one K1 (or, with ``depth_only``, K2) launch for a
     binned (B, C, T) record stream: pad, convert to coefficient cluster
-    rows, and pre-gather each tile's lists. Returns (counts, trec, brec,
-    width, height, tile_h, tile_w, sub, chunk) — ``raster_tile(*args)``."""
-    to_coeffs, ncoef = (records_to_coeffs_depth, NCOEF_DEPTH) if depth_only \
-        else (records_to_coeffs, NCOEF)
+    rows, and count each list in records. The kernels read the rows
+    through the binning's id lists; nothing is gathered per tile. Returns
+    (crec, tile_list, big_idx, counts, width, height, tile_h, tile_w, sub,
+    chunk, cluster) — ``raster_tile(*args)``."""
+    to_coeffs = records_to_coeffs_depth if depth_only else records_to_coeffs
     th, tw = (tile_h, tile_w) if tile_h else tile_dims(width, height)
     tile_list, counts, big_idx, big_count = binned
     sub = tile_subcols(tw)
@@ -891,24 +992,21 @@ def kernel_inputs(rec, binned, width: int, height: int, tile_h: int = None,
                         device=rec.device)
     rec, _, _ = _pad_cluster(rec, all_ok, None, cluster)
     crec = to_coeffs(rec, cluster)                     # (B, Tc, cluster·NC)
-    cap = tile_list.shape[-1] * cluster
-    envs = torch.arange(B, device=rec.device)
-    trec = crec[envs[:, None, None], tile_list.long()].reshape(
-        B, n_tiles, sub * cap, ncoef)
-    brec = crec[envs[:, None], big_idx.long()].reshape(B, -1, ncoef)
     counts2 = torch.cat(
         [counts.reshape(B, n_tiles, sub) * cluster,
          (big_count * cluster)[:, None, None].expand(B, n_tiles, 1)],
         dim=-1).int().contiguous()
-    return (counts2, trec.contiguous(), brec.contiguous(), width, height,
-            th, tw, sub, chunk or KERNEL_CHUNK)
+    return (crec.contiguous(), tile_list.contiguous(), big_idx.contiguous(),
+            counts2, width, height, th, tw, sub, chunk or KERNEL_CHUNK,
+            cluster)
 
 
 def _raster_main(rec, binned, width: int, height: int,
                  tile_h: int = None, tile_w: int = None,
                  cluster: int = CLUSTER, chunk: int = None):
-    """Main raster of a (B, C, T) record stream: coefficients, per-tile
-    gather, K1. Returns cropped (depth, tidf, d0, d1, s), each (B, H, W)."""
+    """Main raster of a (B, C, T) record stream: coefficients, then K1
+    through the tile lists. Returns cropped (depth, tidf, d0, d1, s), each
+    (B, H, W)."""
     planes = raster_tile(*kernel_inputs(rec, binned, width, height, tile_h,
                                         tile_w, cluster, chunk))
     return tuple(p[:, :height, :width] for p in planes)

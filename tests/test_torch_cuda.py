@@ -101,6 +101,91 @@ def test_kernel_matches_plain_version_on_card(cuda_device, depth_only, W, H,
         assert float((k[0] - r[0]).abs()[hit].max()) <= 1e-4
 
 
+def _lattice_records(W, H, dev, step=8):
+    """Triangles with every vertex on a pixel centre (edges run through
+    centres), in one z = 0.25 plane, each one twice: equal-z ties on every
+    shared edge and on every pixel of a duplicate."""
+    xs = torch.arange(0, W + step, step, dtype=torch.float32) + 0.5
+    ys = torch.arange(0, H + step, step, dtype=torch.float32) + 0.5
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    p = torch.stack([gx, gy], -1)
+    a, b, c, d = p[:-1, :-1], p[:-1, 1:], p[1:, :-1], p[1:, 1:]
+    tris = torch.cat([torch.stack([a, c, b], -2).reshape(-1, 3, 2),
+                      torch.stack([b, c, d], -2).reshape(-1, 3, 2)])
+    tris = torch.cat([tris, tris])
+    zw = torch.tensor([0.25, 1.0]).expand(*tris.shape[:2], 2)
+    corners = torch.cat([tris, zw], -1).to(dev)          # (T, 3, 4)
+    return R.corner_records(corners[None, :, 0], corners[None, :, 1],
+                            corners[None, :, 2], two_sided=True)
+
+
+def _bit_exact(rec, ok, W, H, depth_only):
+    args = R.kernel_inputs(rec, R.bin_triangles(rec, ok, W, H), W, H,
+                           depth_only=depth_only)
+    kernel, plain = (R.raster_depth, R.raster_depth_ref) if depth_only \
+        else (R.raster_tile, R.raster_tile_ref)
+    k = kernel(*args)
+    if k[0].is_cuda:
+        torch.cuda.synchronize()
+    r = plain(*args)
+    if depth_only:
+        k, r = (k,), (r,)
+    for a, b in zip(k, r):
+        assert torch.equal(a, b)
+    return args, r
+
+
+# (W, H): 8×128 tiles (4 rows a thread), 16×256 (8), 32×256 (16)
+PPT_TARGETS = [(128, 128), (256, 128), (256, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,H", PPT_TARGETS)
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_kernel_bit_exact_scene_on_card(cuda_device, depth_only, W, H):
+    rec, ok = _scene_records(W, H, cuda_device)
+    _bit_exact(rec, ok, W, H, depth_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,H", PPT_TARGETS)
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_kernel_bit_exact_pixel_centre_edges_and_ties_on_card(
+        cuda_device, depth_only, W, H):
+    rec, ok = _lattice_records(W, H, cuda_device)
+    _, r = _bit_exact(rec, ok, W, H, depth_only)
+    assert bool(torch.isfinite(r[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_kernel_all_lists_empty_on_card(cuda_device, depth_only):
+    rec, ok = _scene_records(256, 128, cuda_device)
+    ok = torch.zeros_like(ok)
+    args, r = _bit_exact(rec, ok, 256, 128, depth_only)
+    assert int(args[3].sum()) == 0
+    assert bool(torch.isinf(r[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_kernel_big_list_only_on_card(cuda_device, depth_only):
+    """Two screen-wide triangles span more tiles than the span cap: the
+    big list holds them and every small list is empty."""
+    W, H = 256, 1024
+    corners = torch.tensor([[[-10.0, -10.0, 0.5, 1.0], [-10.0, 2000.0, 0.5, 1.0],
+                             [600.0, -10.0, 0.5, 1.0]],
+                            [[600.0, -10.0, 0.2, 1.0], [-10.0, 2000.0, 0.2, 1.0],
+                             [600.0, 2000.0, 0.2, 1.0]]],
+                           device=cuda_device)
+    rec, ok = R.corner_records(corners[None, :, 0], corners[None, :, 1],
+                               corners[None, :, 2], two_sided=True)
+    args, r = _bit_exact(rec, ok, W, H, depth_only)
+    counts, sub = args[3], args[8]
+    assert int(counts[..., :sub].sum()) == 0 and int(counts[..., sub].min()) > 0
+    assert bool(torch.isfinite(r[0]).all())
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_cpu_inputs_mixed_with_cuda(cuda_device):
     """A CUDA launch takes CUDA tensors only; it never falls back."""

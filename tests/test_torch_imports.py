@@ -44,16 +44,18 @@ def test_kernel_wrappers_count_only_kernel_launches():
     from clap_tpu_torch.render import raster as R
 
     counts = torch.zeros((1, 1, 2), dtype=torch.int32)
-    trec = torch.zeros((1, 1, 32, R.NCOEF))
-    brec = torch.zeros((1, 32, R.NCOEF))
+    tile_list = torch.zeros((1, 1, 4), dtype=torch.int32)
+    big_idx = torch.zeros((1, 4), dtype=torch.int32)
     before = R.raster_tile.launches
-    depth, tid, d0, d1, s = R.raster_tile(counts, trec, brec, 128, 8, 8,
-                                          128, 1, 32)
+    depth, tid, d0, d1, s = R.raster_tile(
+        torch.zeros((1, 4, 8 * R.NCOEF)), tile_list, big_idx, counts, 128, 8,
+        8, 128, 1, 32, 8)
     assert R.raster_tile.launches == before
     assert torch.isinf(depth).all() and (tid == -1).all()
-    d = R.raster_depth(counts, torch.zeros((1, 1, 32, R.NCOEF_DEPTH)),
-                       torch.zeros((1, 32, R.NCOEF_DEPTH)), 128, 8, 8, 128,
-                       1, 32)
+    before = R.raster_depth.launches
+    d = R.raster_depth(torch.zeros((1, 4, 8 * R.NCOEF_DEPTH)), tile_list,
+                       big_idx, counts, 128, 8, 8, 128, 1, 32, 8)
+    assert R.raster_depth.launches == before
     assert torch.isinf(d).all()
 
 

@@ -275,11 +275,39 @@ def test_corner_records_matches_jax():
         np.testing.assert_array_equal(trec.numpy(), np.asarray(jrec))
 
 
-def test_kernel_inputs_reject_bad_chunk():
+def _kernel_args_list(depth_only=False):
     rec, ok = _records(128, 128)
     trec = _t(rec)[None]
-    args = list(TR.kernel_inputs(trec, TR.bin_triangles(
-        trec, _t(ok)[None], 128, 128), 128, 128))
-    args[-1] = 24                      # does not divide the capacity
+    return list(TR.kernel_inputs(trec, TR.bin_triangles(
+        trec, _t(ok)[None], 128, 128), 128, 128, depth_only=depth_only))
+
+
+def test_kernel_inputs_reject_bad_chunk():
+    args = _kernel_args_list()
+    args[-2] = 24                      # does not divide the big-list size
     with pytest.raises(ValueError):
         TR._kernel_args(*args, TR.NCOEF)
+
+
+@pytest.mark.parametrize("chunk", [12, 4, 40])
+def test_kernel_args_reject_chunk_not_whole_clusters(chunk):
+    """A chunk is whole cluster rows (8 records) of at most 32 records."""
+    args = _kernel_args_list(depth_only=True)
+    assert args[-1] == 8
+    args[-2] = chunk
+    with pytest.raises(ValueError, match="whole cluster rows"):
+        TR._kernel_args(*args, TR.NCOEF_DEPTH)
+
+
+def test_kernel_inputs_build_no_per_tile_copy():
+    """kernel_inputs hands the kernels the coefficient cluster rows and the
+    binning's own id lists: nothing (B, n_tiles, sub·cap, NC) is built."""
+    rec, ok = _records(256, 128)
+    trec = _t(rec)[None]
+    binned = TR.bin_triangles(trec, _t(ok)[None], 256, 128)
+    crec, tile_list, big_idx, counts, *rest = TR.kernel_inputs(
+        trec, binned, 256, 128)
+    assert crec.shape == (1, TR.cdiv(trec.shape[-1], 8), 8 * TR.NCOEF)
+    assert torch.equal(tile_list, binned[0])
+    assert torch.equal(big_idx, binned[2])
+    assert counts.shape == (1, 8, 3) and list(rest[-3:]) == [2, 32, 8]
