@@ -285,27 +285,6 @@ def main() -> int:
                 R.kernel_inputs(brec, bbin, *db, depth_only=True))
 
     # ------------------------------------------------ 5b kernel timing
-    def time_ms(fn, args, reps):
-        """Device ms per call: a spin on the stream holds the start event
-        until every call is queued, so the host's launch time between
-        short kernels is not counted (where a call waits on the device
-        itself, as the plain walks do, the host's pace still shows)."""
-        fn(*args)
-        sync()
-        t0 = time.perf_counter()
-        fn(*args)
-        host = time.perf_counter() - t0
-        sync()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(min(1.5 * host * reps + 1e-3, 2.0) * 2e9))
-        e0.record()
-        for _ in range(reps):
-            fn(*args)
-        e1.record()
-        sync()
-        return e0.elapsed_time(e1) / reps
-
     tile_args = R.kernel_inputs(rec, binned, RES, RES)
     _, _, tile_err = check_tile(f"slice frame 11 all {N_SLICE} envs",
                                 tile_args)
@@ -331,7 +310,8 @@ def main() -> int:
     for name, (bms, by, n) in (("K1", k1_bound), ("K2", k2_bound)):
         log(f"phase 5 {name} bound: {bms:.4f} ms ({by}); {n['records']} "
             f"records walked ({n['small']} of the tiles' lists, "
-            f"{n['big']} of the big lists, read once), {n['covered']} "
+            f"{n['big']} of the big lists once per env; {n['unique']} "
+            f"distinct, read once), {n['covered']} "
             f"covered pixel-record pairs, {n['wins']} wins; {n['bytes']} B, "
             f"{n['flops']} flop; pixel-record tests: brute force "
             f"{n['tests']}, the kernel after its per-warp reject "
@@ -356,7 +336,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 6
-    ca = run_ca_phase(dev, smi, time_ms, require)
+    ca = run_ca_phase(dev, smi, require)
 
     # ---------------------------------------------------------------- 7
     run_skinning_phase(dev, smi, require)
@@ -388,6 +368,33 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def time_ms(fn, args, reps):
+    """Device ms per call of ``fn(*args)``, CUDA events around ``reps``
+    calls. A spin on the stream holds the start event until every call is
+    queued, so the host's launch time between short kernels is not counted
+    (where a call waits on the device itself, as the plain walks do, the
+    host's pace still shows). The spin is 1.5 times the host time of one
+    call per call, counted in cycles at 2 GHz: at the H100's top SM clock
+    (1.98 GHz) or below it lasts at least that long."""
+    import torch
+
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * host * reps + 1e-3, 2.0) * 2e9))
+    e0.record()
+    for _ in range(reps):
+        fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def build_slice(dev, n_envs=N_SLICE):
@@ -478,26 +485,51 @@ def walk_bound(R, plain, args, ncoef, planes, win_flop):
     """The least time of a K1 / K2 launch on ``args``, from the plain
     version's walk, instrumented, counting what these inputs need: the
     records each list walks up to its early-out. Bytes: the counts, the
-    cluster ids and the records walked (of the tiles' lists and of each
-    env's big list, read once), and the output planes written once, at
-    3.35 TB/s. Flops: 16 per covered pixel-record pair (edges >= 0 and z in
-    [-1, 1], the pairs any correct walk must depth-test) and ``win_flop``
-    per win, at 67 TFLOP/s (float32 outside the tensor cores). Also counts
-    the brute-force tests (every pixel x every record walked) and the tests
-    the kernel makes after its per-warp reject (``_warp_keep_ref``).
-    Returns (ms, "bytes" | "operations", counts)."""
+    cluster ids walked (of the tiles' lists and of each env's big list),
+    each distinct (env, cluster) row among the walked records read once (a
+    cluster binned into several sub-tiles is counted once), and the output
+    planes written once, at 3.35 TB/s. Flops: 16 per covered pixel-record
+    pair (edges >= 0 and z in [-1, 1], the pairs any correct walk must
+    depth-test) and ``win_flop`` per win, at 67 TFLOP/s (float32 outside
+    the tensor cores). Also counts the brute-force tests (every pixel x
+    every record walked) and the tests the kernel makes after its per-warp
+    reject (``_warp_keep_ref``). Returns (ms, "bytes" | "operations",
+    counts)."""
     import torch
 
-    walk = R._walk_ref
+    walk, gather = R._walk_ref, R._gather_lists
+    crec, tile_list, big_idx, counts = args[:4]
+    sub, cluster = args[8], args[10]
+    Tc = crec.shape[1]
     n = {"records": 0, "tests": 0, "wins": 0, "covered": 0, "kept": 0,
          "warp_records": 0, "kernel_tests": 0}
+    rows_seen = []                       # env * Tc + cluster id, per row
+
+    def gather_tagged(crec, tile_list, big_idx, counts, nc):
+        """The plain gather, each record carrying its env and cluster id
+        in two trailing columns (exact in float32: ids < 2^24)."""
+        trec, brec = gather(crec, tile_list, big_idx, counts, nc)
+        B = crec.shape[0]
+        env = torch.arange(B, device=crec.device, dtype=torch.float32)
+
+        def tag(rec, ids):
+            ids = ids.long().repeat_interleave(cluster, -1).reshape(
+                rec.shape[:-1]).float()
+            e = env.reshape((B,) + (1,) * (ids.dim() - 1)).expand_as(ids)
+            return torch.cat([rec, e[..., None], ids[..., None]], -1)
+        return (tag(trec, tile_list.reshape(B, trec.shape[1], -1)),
+                tag(brec, big_idx))
 
     def counted(*a):
         step = a[-1]
 
         def step_counted(slab, nv, px, py, carry):
+            slab, tags = slab[..., :ncoef], slab[..., ncoef:]
             new = step(slab, nv, px, py, carry)
-            rows = int(torch.clamp(nv, max=slab.shape[1]).sum())
+            live = torch.arange(slab.shape[1], device=slab.device)[None] \
+                < nv[:, None]
+            rows = int(live.sum())
+            rows_seen.append((tags[..., 0] * Tc + tags[..., 1])[live].long())
             n["records"] += rows
             n["tests"] += rows * px.shape[1] * px.shape[2]
             n["wins"] += int((new[0] < carry[0]).sum())
@@ -510,26 +542,26 @@ def walk_bound(R, plain, args, ncoef, planes, win_flop):
             return new
         return walk(*a[:-1], step_counted)
 
-    R._walk_ref = counted
+    R._walk_ref, R._gather_lists = counted, gather_tagged
     try:
         out = plain(*args)
     finally:
-        R._walk_ref = walk
-    counts, sub, cluster = args[3], args[8], args[10]
+        R._walk_ref, R._gather_lists = walk, gather
     big = counts[..., sub]                       # per env and tile
     n["big"] = int(big[:, 0].sum())              # each env's list, once
     n["small"] = n["records"] - int(big.sum()) * sub
+    n["unique"] = cluster * int(torch.unique(torch.cat(rows_seen)).numel()) \
+        if rows_seen else 0             # records of the distinct rows
     hw = (out[0] if isinstance(out, tuple) else out).numel()
-    walked = n["small"] + n["big"]
-    n["bytes"] = counts.numel() * 4 + walked // cluster * 4 \
-        + walked * ncoef * 4 + planes * hw * 4
+    n["bytes"] = counts.numel() * 4 + (n["small"] + n["big"]) // cluster \
+        * 4 + n["unique"] * ncoef * 4 + planes * hw * 4
     n["flops"] = 16 * n["covered"] + win_flop * n["wins"]
     t_bytes, t_ops = n["bytes"] / 3.35e12 * 1e3, n["flops"] / 67e12 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                  else "operations"), n
 
 
-def run_ca_phase(dev, smi, time_ms, require):
+def run_ca_phase(dev, smi, require):
     """Phase 6: K3 against its plain version on every route (5 rules × 4
     shapes, 512² and 1,024² over a cluster, every schedulable cluster
     size, 2,048² on the device-memory route), the CA path driven and timed

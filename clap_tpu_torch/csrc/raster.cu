@@ -59,13 +59,16 @@
 //   chunk's minimum cluster zmin - 1e-3 (every warp reduces the same zmin
 //   from the staged rows; the eight warp maxima meet in the ring's barrier).
 //   The big list is walked in full.
-// - A CTA whose lists are both empty writes its background with 16-byte
-//   stores and returns; K2 stages its plane through shared memory and
-//   stores it as float4 (K1 stores its five planes a row of a warp at a
-//   time, 128 coalesced bytes).
+// - A CTA whose lists are both empty skips the chunk loop and writes its
+//   background. K2 stages its plane through shared memory and stores it as
+//   float4 (K1 stores its five planes a row of a warp at a time, 128
+//   coalesced bytes). A separate early return for empty CTAs, float4
+//   stores and no lattice set-up, measured no faster on the atlas, where
+//   most CTAs are empty, so there is one path.
 // - Occupancy: launch bounds of 3 CTAs of 256 threads per SM for K1 at
-//   PPT 4 and 8 (80 registers; PPT 16 holds 80 floats of planes a thread
-//   and is left unbounded), 4 for K2 (64 registers).
+//   PPT 4 and 8 (80 registers; 16 % faster than 2 CTAs uncapped; PPT 16
+//   holds 80 floats of planes a thread and is left unbounded), 4 for K2
+//   (64 registers).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -140,13 +143,11 @@ __device__ __forceinline__ void stage(float* dst, const float* crec_env,
   cp_async_commit();
 }
 
-#ifndef CLAP_RASTER_K1_MIN_BLOCKS
-#define CLAP_RASTER_K1_MIN_BLOCKS 3   // K1's CTAs per SM at PPT 4 and 8
-#endif
+constexpr int kK1Blocks = 3;     // K1's CTAs per SM at PPT 4 and 8
 
 template <int PPT, int NC, bool ATTRS>
-__global__ void __launch_bounds__(
-    kThreads, ATTRS ? (PPT >= 16 ? 1 : CLAP_RASTER_K1_MIN_BLOCKS) : 4)
+__global__ void __launch_bounds__(kThreads,
+                                  ATTRS ? (PPT >= 16 ? 1 : kK1Blocks) : 4)
 raster_kernel(const float* __restrict__ crec, const int* __restrict__ tile_list,
               const int* __restrict__ big_idx, const int* __restrict__ counts,
               float* __restrict__ o_depth, float* __restrict__ o_tid,
@@ -171,24 +172,6 @@ raster_kernel(const float* __restrict__ crec, const int* __restrict__ tile_list,
   const int ns = (count + chunk - 1) / chunk;
   const int total = ns + (big_count + chunk - 1) / chunk;
   const size_t out0 = ((size_t)b * Hp + ty0) * Wp + tx0;
-
-#ifndef CLAP_RASTER_NO_EMPTY_EXIT
-  if (total == 0) {                               // background, float4
-    for (int i = threadIdx.x; i < TH * kCols / 4; i += kThreads) {
-      const size_t o = out0 + (size_t)(i / (kCols / 4)) * Wp + 4 * (i % 32);
-      *reinterpret_cast<float4*>(o_depth + o) =
-          make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
-      if (ATTRS) {
-        *reinterpret_cast<float4*>(o_tid + o) = make_float4(-1.f, -1.f, -1.f,
-                                                            -1.f);
-        *reinterpret_cast<float4*>(o_d0 + o) = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(o_d1 + o) = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(o_s + o) = make_float4(1.f, 1.f, 1.f, 1.f);
-      }
-    }
-    return;
-  }
-#endif
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;

@@ -2,18 +2,17 @@
 """K1 and K2 (clap_tpu_torch render/raster.py ``raster_tile`` /
 ``raster_depth``) measured on one CUDA card, with CUDA events:
 
-    python3 tools/torch_raster_ab.py [--old CHECKOUT] [--reps N]
+    python3 tools/torch_raster_ab.py [--old CHECKOUT] [--reps N] [--pairs P]
 
 Inputs are the slice's own (chip_smoke.py's phase 5 world, 64 envs ×
 256²): the main pass and the cascade atlas after 11 frames of
 ``step_and_render``, and the 1,024² static shadow bake. Prints the card
 (nvidia-smi name and power limit), the ptxas lines of csrc/raster.cu, then
-per input the kernel alone and the input preparation (``kernel_inputs``)
-plus the kernel, K2 with and without its empty-list early return (the
-same source built with -DCLAP_RASTER_NO_EMPTY_EXIT), and K1 at launch
-bounds of 3 and 2 CTAs per SM (-DCLAP_RASTER_K1_MIN_BLOCKS=2), in the
-order A, B, B, A, each pair checked bit-identical. Times are device time:
-a spin on the stream holds the start event until every call is queued.
+per input the kernel alone, the input preparation (``kernel_inputs``), the
+two of them together, and the per-tile pre-gather that the earlier
+``kernel_inputs`` made (``_gather_lists``, the same index ops) alone.
+Times are device time (``chip_smoke.time_ms``: a spin on the stream holds
+the start event until every call is queued).
 
 With ``--old``, the checkout's own csrc/raster.cu and
 clap_tpu_torch/render/raster.py (an earlier K1/K2 that takes per-tile
@@ -21,13 +20,16 @@ pre-gathered records: C ``raster_tile_launch(counts, trec, brec, 5 planes,
 B, n_tiles, ntx, tile_h, tile_w, sub, cap, n_big, chunk, Hp, Wp, stream)``,
 its ``kernel_inputs`` returning ``(counts, trec, brec, ...)``) are built and
 loaded beside this tree's and timed against them in the order old, new,
-new, old, on the same inputs, with a bit-identical check of every plane.
-The last line is a JSON object of every time.
+new, old, on the same inputs, with a bit-identical check of every plane:
+the kernel alone once, ``kernel_inputs`` + kernel ``--pairs`` times, with
+the median and range of each side. The last line is a JSON object of
+every time.
 """
 import argparse
 import ctypes
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -43,12 +45,12 @@ def smi(query):
         .splitlines()[0].strip()
 
 
-def start_nvcc(src: Path, out: Path, extra=()):
+def start_nvcc(src: Path, out: Path):
     from clap_tpu_torch import cuda_build
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
-                             *extra, "-o", str(out), str(src)],
+                             "-o", str(out), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
@@ -82,6 +84,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", type=Path, default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--frames", type=int, default=11)
     a = ap.parse_args()
 
@@ -104,32 +107,19 @@ def main() -> int:
     res = {"card": card}
 
     # ------------------------------------------------ builds, in parallel
-    src = ROOT / "clap_tpu_torch" / "csrc" / "raster.cu"
     bd = cuda_build.BUILD_DIR
-    procs = {"noexit": (start_nvcc(src, bd / "raster_noexit.so",
-                                   ["-DCLAP_RASTER_NO_EMPTY_EXIT"]),
-                        bd / "raster_noexit.so"),
-             "k1_2cta": (start_nvcc(src, bd / "raster_k1_2cta.so",
-                                    ["-DCLAP_RASTER_K1_MIN_BLOCKS=2"]),
-                         bd / "raster_k1_2cta.so")}
+    old = old_lib = None
     if a.old is not None:
-        procs["old"] = (start_nvcc(a.old / "clap_tpu_torch" / "csrc" /
-                                   "raster.cu", bd / "raster_old.so"),
-                        bd / "raster_old.so")
+        proc = start_nvcc(a.old / "clap_tpu_torch" / "csrc" / "raster.cu",
+                          bd / "raster_old.so")
     cuda_build.build_all(("raster",))
     ptxas("", cuda_build.build_info["raster"]["log"])
-    libs = {}
-    for name, (p, out) in procs.items():
-        libs[name], log = finish_nvcc(p, out)
-        ptxas(f" ({name})", log)
-    cuda_build.SOURCES["raster"](libs["noexit"])
-    cuda_build.SOURCES["raster"](libs["k1_2cta"])
-    lib_new = cuda_build.load_lib("raster")
-    old = None
     if a.old is not None:
+        old_lib, log = finish_nvcc(proc, bd / "raster_old.so")
+        ptxas(" (old)", log)
         P, I = ctypes.c_void_p, ctypes.c_int
-        libs["old"].raster_tile_launch.argtypes = [P] * 8 + [I] * 11 + [P]
-        libs["old"].raster_depth_launch.argtypes = [P] * 4 + [I] * 11 + [P]
+        old_lib.raster_tile_launch.argtypes = [P] * 8 + [I] * 11 + [P]
+        old_lib.raster_depth_launch.argtypes = [P] * 4 + [I] * 11 + [P]
         old = load_old_raster(a.old)
 
     def ptr(t):
@@ -137,34 +127,6 @@ def main() -> int:
 
     def stream():
         return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-    def depth_with(lib, args):
-        """K2 from ``lib`` (this tree's source, any build) on new args."""
-        B, Tc, cap_c, n_big_c, n_tiles, ntx, Hp, Wp = R._kernel_args(
-            *args, R.NCOEF_DEPTH)
-        crec, tl, bi, counts, _, _, th, tw, sub, chunk, cluster = args
-        out = torch.empty((B, Hp, Wp), device=dev)
-        rc = lib.raster_depth_launch(ptr(crec), ptr(tl), ptr(bi), ptr(counts),
-                                     ptr(out), B, Tc, cluster, cap_c, n_big_c,
-                                     n_tiles, ntx, th, tw, sub, chunk, Hp, Wp,
-                                     stream())
-        if rc:
-            raise RuntimeError(f"raster_depth_launch: CUDA error {rc}")
-        return out
-
-    def tile_with(lib, args):
-        """K1 from ``lib`` (this tree's source, any build) on new args."""
-        B, Tc, cap_c, n_big_c, n_tiles, ntx, Hp, Wp = R._kernel_args(
-            *args, R.NCOEF)
-        crec, tl, bi, counts, _, _, th, tw, sub, chunk, cluster = args
-        outs = [torch.empty((B, Hp, Wp), device=dev) for _ in range(5)]
-        rc = lib.raster_tile_launch(ptr(crec), ptr(tl), ptr(bi), ptr(counts),
-                                    *(ptr(o) for o in outs), B, Tc, cluster,
-                                    cap_c, n_big_c, n_tiles, ntx, th, tw, sub,
-                                    chunk, Hp, Wp, stream())
-        if rc:
-            raise RuntimeError(f"raster_tile_launch: CUDA error {rc}")
-        return tuple(outs)
 
     def old_launch(depth_only, counts, trec, brec, width, height, th, tw, sub,
                    chunk):
@@ -175,8 +137,8 @@ def main() -> int:
         Hp, Wp = nty * th, ntx * tw
         outs = [torch.empty((B, Hp, Wp), device=dev)
                 for _ in range(1 if depth_only else 5)]
-        fn = libs["old"].raster_depth_launch if depth_only \
-            else libs["old"].raster_tile_launch
+        fn = old_lib.raster_depth_launch if depth_only \
+            else old_lib.raster_tile_launch
         rc = fn(ptr(counts), ptr(trec), ptr(brec), *(ptr(o) for o in outs),
                 B, n_tiles, ntx, th, tw, sub, cap, n_big, chunk, Hp, Wp,
                 stream())
@@ -184,26 +146,8 @@ def main() -> int:
             raise RuntimeError(f"old kernel: CUDA error {rc}")
         return outs[0] if depth_only else tuple(outs)
 
-    def time_ms(fn, reps=a.reps):
-        """Device ms per call, the host's launch time hidden behind a spin
-        that holds the start event until every call is queued."""
-        import time
-
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        fn()
-        host = time.perf_counter() - t0
-        sync()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(min(1.5 * host * reps + 1e-3, 2.0) * 2e9))
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        sync()
-        return e0.elapsed_time(e1) / reps
+    def time_ms(fn):
+        return CS.time_ms(fn, (), a.reps)
 
     def abba(name, fa, fb, la, lb):
         t = [(la, time_ms(fa)), (lb, time_ms(fb)), (lb, time_ms(fb)),
@@ -212,6 +156,15 @@ def main() -> int:
               f"{[round(x, 4) for _, x in t]}", flush=True)
         res[name] = t
         return t
+
+    def spread(name, t):
+        """Median and range of each side of a run of A, B, B, A pairs."""
+        for side in dict(t):
+            v = sorted(x for k, x in t if k == side)
+            m = statistics.median(v)
+            res[f"{name}: {side} median ms"] = m
+            print(f"{name}: {side} median {m:.4f} ms, range {v[0]:.4f}-"
+                  f"{v[-1]:.4f} ms over {len(v)}", flush=True)
 
     def same(x, y):
         x = x if isinstance(x, tuple) else (x,)
@@ -246,40 +199,24 @@ def main() -> int:
     for name, depth_only, inp in cases:
         kern = R.raster_depth if depth_only else R.raster_tile
         args = R.kernel_inputs(*inp, depth_only=depth_only)
+        ncoef = R.NCOEF_DEPTH if depth_only else R.NCOEF
 
         def new_all(inp=inp, depth_only=depth_only, kern=kern):
             return kern(*R.kernel_inputs(*inp, depth_only=depth_only))
 
+        res[f"{name}: new kernel ms"] = time_ms(lambda: kern(*args))
         res[f"{name}: new kernel_inputs ms"] = time_ms(
             lambda: R.kernel_inputs(*inp, depth_only=depth_only))
-        if depth_only:
-            out = depth_with(lib_new, args)
-            ok = same(out, depth_with(libs["noexit"], args))
-            print(f"{name}: with / without the empty-list exit bit-identical "
-                  f"{ok}", flush=True)
-            if not ok:
-                raise RuntimeError(f"{name}: the empty-list exit changes "
-                                   f"the output")
-            abba(f"{name}: K2 with vs without the empty-list exit",
-                 lambda: depth_with(lib_new, args),
-                 lambda: depth_with(libs["noexit"], args), "exit", "no exit")
-        else:
-            ok = same(tile_with(lib_new, args), tile_with(libs["k1_2cta"],
-                                                          args))
-            print(f"{name}: 3 and 2 CTAs per SM bit-identical {ok}",
-                  flush=True)
-            if not ok:
-                raise RuntimeError(f"{name}: launch bounds change the output")
-            abba(f"{name}: K1 at 3 vs 2 CTAs per SM (launch bounds)",
-                 lambda: tile_with(lib_new, args),
-                 lambda: tile_with(libs["k1_2cta"], args), "3 CTAs", "2 CTAs")
+        res[f"{name}: new kernel_inputs + kernel ms"] = time_ms(new_all)
+        res[f"{name}: the earlier pre-gather alone ms"] = time_ms(
+            lambda: R._gather_lists(*args[:4], ncoef))
+        print(f"{name}: kernel {res[f'{name}: new kernel ms']:.4f} ms, "
+              f"kernel_inputs {res[f'{name}: new kernel_inputs ms']:.4f} "
+              f"ms, both {res[f'{name}: new kernel_inputs + kernel ms']:.4f}"
+              f" ms; the earlier per-tile pre-gather alone "
+              f"{res[f'{name}: the earlier pre-gather alone ms']:.4f} ms",
+              flush=True)
         if old is None:
-            res[f"{name}: new kernel ms"] = time_ms(lambda: kern(*args))
-            res[f"{name}: new kernel_inputs + kernel ms"] = time_ms(new_all)
-            print(f"{name}: kernel {res[f'{name}: new kernel ms']:.4f} ms, "
-                  f"kernel_inputs + kernel "
-                  f"{res[f'{name}: new kernel_inputs + kernel ms']:.4f} ms",
-                  flush=True)
             continue
         oargs = old.kernel_inputs(*inp, depth_only=depth_only)
 
@@ -299,8 +236,11 @@ def main() -> int:
               f"{res[f'{name}: new kernel_inputs ms']:.4f} ms", flush=True)
         abba(f"{name}: kernel alone", lambda: old_launch(depth_only, *oargs),
              lambda: kern(*args), "old", "new")
-        abba(f"{name}: kernel_inputs + kernel", old_all, new_all, "old",
-             "new")
+        t = []
+        for p in range(a.pairs):
+            t += abba(f"{name}: kernel_inputs + kernel, pair {p}", old_all,
+                      new_all, "old", "new")
+        spread(f"{name}: kernel_inputs + kernel", t)
 
     print(card, flush=True)
     print(json.dumps(res))
