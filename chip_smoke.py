@@ -18,18 +18,21 @@ Phases, one or more lines each:
    tid agreement ≥ 99.5% and depth within 1e-4 where ids agree).
 4. headless — engine_step at 4,096 envs on the headline testbed scene:
    1 warm-up + 30 timed frames, ms/frame and env-steps/s.
-5. slice — step_and_render at 64 envs × 256² (game_step with the game
-   config and demo rig of bench.py:546-559 — engine step with camera
-   occlusion, switch rules, rig animation — then cluster-record assembly
-   and the composed frame with the baked static shadow): 1 warm-up + 10
-   timed frames, ms/frame, env-fps, peak memory, clusters/tiles at
-   capacity, each kernel timed alone next to its plain version and its
-   bound (what these inputs need, counted on the plain version's walk:
-   records walked, covered pixel-record pairs, wins; beside them the
-   brute-force tests and the kernel's tests after its per-warp reject),
-   the input preparation (kernel_inputs) of each, launch counts of the
-   driven run, and an end-to-end check of two envs' images against the
-   plain CPU path.
+5. slice — step_and_render at 64 envs × 256², the JAX bench's default
+   composition (bench.py:544-673): game_step with the game config and demo
+   rig of bench.py:546-559 (engine step with camera occlusion, switch
+   rules, rig animation), LBS-skinned ring-column characters
+   (build_testbed_char_skin, SKIN=1), cluster-record assembly with the
+   skinned range, and the composed frame with the baked static shadow: 1
+   warm-up + 10 timed frames, ms/frame, env-fps, peak memory,
+   clusters/tiles at capacity, the skinned records per env, the pose
+   (frame 11 drawn with frame 1's joint matrices moves pixels), each
+   kernel timed alone next to its plain version and its bound (what these
+   inputs need, counted on the plain version's walk: records walked,
+   covered pixel-record pairs, wins; beside them the brute-force tests and
+   the kernel's tests after its per-warp reject), the input preparation
+   (kernel_inputs) of each, launch counts of the driven run, and an
+   end-to-end check of two envs' images against the plain CPU path.
 6. CA — K3 (ca2d_run_fused) bit-exact against its plain version ca2d_run
    for 5 rules on every route, each line with its route, cluster size and
    launches per call: 4 shapes (64², 96×160, 37×53, 256² × 1,000),
@@ -43,6 +46,14 @@ Phases, one or more lines each:
 7. skinning — the JAX bench's config #3 (1,024 instances, 64 joints,
    4,096 verts): pose sampling, joint matrices and batched LBS, ms per
    call and skinned verts/s; four instances against the CPU path (1e-4).
+8. textured — the JAX bench's ``step_and_render_textured`` config
+   (bench.py:566-575, 620-666) at 64 envs × 256²: skinned and textured
+   characters, textured trees; the tables are not flat-eligible, so the
+   frame takes the member-granularity assembly and the per-pixel attribute
+   gather (K1 on 19-column barycentric records). As phase 5: 1 warm-up +
+   10 timed frames, checks, launches, K1 bit-exact on frame 11's records
+   and timed beside its plain version, input preparation and bound, and
+   two envs against the plain CPU path.
 
 Then a JSON line of the kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
@@ -79,11 +90,9 @@ def main() -> int:
     from clap_tpu_torch import cuda_build
     from clap_tpu_torch import mathx as mx
     from clap_tpu_torch.bridge import tree_map
-    from clap_tpu_torch.engine.frame import SceneRenderer, step_and_render
     from clap_tpu_torch.engine.step import engine_step, inputs_zero
     from clap_tpu_torch.render import raster as R
-    from clap_tpu_torch.render.scenerender import bake_static_shadow, \
-        kernel_attrs_ok
+    from clap_tpu_torch.render.scenerender import kernel_attrs_ok
     from clap_tpu_torch.scene import testbed as tbm
     from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
 
@@ -211,71 +220,48 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 5
     w5 = build_slice(dev)
-    tb, ent, rt, lights, opts = (w5[k] for k in ("tb", "ent", "rt", "lights",
-                                                 "opts"))
+    tb, rt, cs, lights = (w5[k] for k in ("tb", "rt", "cs", "lights"))
     require(kernel_attrs_ok(rt), "kernel_attrs eligibility")
-    gw, gs, ins = w5["gw"], w5["gs"], w5["ins"]
-    frame0 = gs.engine.frame.clone()
-    torch.cuda.reset_peak_memory_stats()
-
-    # the driven run: launch counts start here
-    R.raster_tile.launches = 0
-    R.raster_depth.launches = 0
-    t0 = time.perf_counter()
-    static = bake_static_shadow(rt, tb.state0.mx, lights.direction[0],
-                                shadow_size=1024, far=200.0)
-    renderer = SceneRenderer(rt, lights, opts, skip_culling=ent.skip_culling,
-                             static_shadow=static, lod_scale=RES / 720.0)
-    gs, imgs = step_and_render(gw, renderer, gs, ins)
-    sync()
-    warm = time.perf_counter() - t0
-    st1 = gs.engine
-    t0 = time.perf_counter()
-    for _ in range(10):
-        gs, imgs = step_and_render(gw, renderer, gs, ins)
-    sync()
-    dt = (time.perf_counter() - t0) / 10
-    launches = {"raster_tile": R.raster_tile.launches,
-                "raster_depth": R.raster_depth.launches}
-    peak = torch.cuda.max_memory_allocated()
-    st = gs.engine
-
-    require(bool(((st.frame - frame0) == 11).all()), "frame counter +11")
-    require(bool((gs.anim.queue.clip[..., 0] >= 0).all()),
-            "every rig plays an animation clip")
-    require(bool(torch.isfinite(gs.joint_mats).all()),
-            "joint matrices finite")
-    require(bool(torch.isfinite(imgs).all()), "images finite")
-    std = imgs.reshape(N_SLICE, -1).std(dim=1)
-    luma = imgs.reshape(N_SLICE, -1).mean(dim=1)
-    require(bool((std > 0.01).all()), "per-env image std > 0.01")
-    require(bool(((luma > 0.02) & (luma < 0.98)).all()),
-            "per-env mean luma in (0.02, 0.98)")
-    require(all(v > 0 for v in launches.values()),
-            f"every kernel launched on the main path: {launches}")
-
+    d5 = drive_frames(w5, sync, require)
+    renderer, gs, imgs, st = d5["renderer"], d5["gs"], d5["imgs"], d5["st"]
+    launches = d5["launches"]
+    require(renderer.cluster_records, "the flagship takes cluster records")
     geom, rec, binned, srec, sbin, (w, h, th, tw) = frame_records(
-        renderer, opts, lights, st)
-    nval = geom.comp_valid.sum(-1) // R.CLUSTER
-    at_cap = int((nval >= opts.record_compact // R.CLUSTER).sum())
+        renderer, st, gs.joint_mats)
+    T5 = geom.comp.shape[-1]
+    n_skin = cs.char_ents.shape[0] * cs.n_main
+    # the compacted rigid clusters, ahead of the skinned range
+    nval = geom.comp_valid[:, :T5 - n_skin].sum(-1) // R.CLUSTER
+    at_cap = int((nval >= renderer.opts.record_compact // R.CLUSTER).sum())
     stats = R.bin_stats(binned)
-    log(f"phase 5 slice: {N_SLICE} envs x {RES}^2, {dt * 1e3:.2f} ms/frame, "
-        f"{N_SLICE / dt:.1f} env-fps, warm-up frame (bake included) "
-        f"{warm:.2f} s, peak memory {peak / 2**30:.2f} GiB, envs with "
-        f"clusters_at_cap {at_cap}/{N_SLICE}, main-pass tiles at capacity "
+    log(f"phase 5 slice (skinned characters): {N_SLICE} envs x {RES}^2, "
+        f"{d5['dt'] * 1e3:.2f} ms/frame, {N_SLICE / d5['dt']:.1f} env-fps, "
+        f"warm-up frame (bake included) {d5['warm']:.2f} s, peak memory "
+        f"{d5['peak'] / 2**30:.2f} GiB, envs with clusters_at_cap "
+        f"{at_cap}/{N_SLICE}, main-pass tiles at capacity "
         f"{stats['tiles_at_cap']}/{stats['n_tiles']} (max "
-        f"{stats['max_per_tile']} of {stats['cap']} records), image std "
-        f"min {float(std.min()):.4f}, mean luma {float(luma.min()):.4f}.."
-        f"{float(luma.max()):.4f}, switch on in "
-        f"{int(gs.game.switch_on[:, 0].sum())}/{N_SLICE} envs, clips "
-        f"{sorted(set(gs.anim.queue.clip[..., 0].flatten().tolist()))} "
-        f"({smi})")
+        f"{stats['max_per_tile']} of {stats['cap']} records), "
+        f"{d5['summary']} ({smi})")
+    log(f"phase 5 skinned records per env: {n_skin} main records "
+        f"({cs.char_ents.shape[0]} chars x {cs.n_main}, LOD 0 faces "
+        f"cluster-padded) after the {T5 - n_skin} compacted rigid records, "
+        f"{int(geom.comp_valid[:, T5 - n_skin:].sum()) // N_SLICE} valid; "
+        f"{3 * cs.n_shadow * cs.char_ents.shape[0]} skinned shadow corner "
+        f"rows of {geom.shadow_corner_verts.shape[1]}")
     log(f"phase 5 launches in the driven run: {launches}")
+    # the pose: frame 11's state drawn with frame 1's joint matrices and
+    # with its own
+    moved = (renderer(st, d5["jm1"]) - imgs).abs().amax(-1) > 0.02
+    n_moved = moved.reshape(N_SLICE, -1).sum(1)
+    log(f"phase 5 pose: frame 11 drawn with frame 1's joint matrices and "
+        f"its own differs on {int(n_moved.min())}..{int(n_moved.max())} "
+        f"pixels per env")
+    require(bool((n_moved > 0).all()), "the pose moves character pixels")
 
     # ---------------------------------------------------------------- 3b
-    st0 = tree_map(lambda x: x[:1], st1)
-    _, rec0, binned0, srec0, sbin0, d0 = frame_records(renderer, opts,
-                                                       lights, st0)
+    st0 = tree_map(lambda x: x[:1], d5["st1"])
+    _, rec0, binned0, srec0, sbin0, d0 = frame_records(renderer, st0,
+                                                       d5["jm1"][:1])
     check_tile("slice frame 1 env 0 G-buffer 256^2",
                R.kernel_inputs(rec0, binned0, RES, RES))
     check_depth(f"slice frame 1 env 0 cascade atlas {d0[1]}x{d0[0]}",
@@ -307,32 +293,15 @@ def main() -> int:
         f"raster_depth {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms; input "
         f"preparation (kernel_inputs) K1 {k1_prep:.3f} ms, K2 "
         f"{k2_prep:.3f} ms ({smi})")
-    for name, (bms, by, n) in (("K1", k1_bound), ("K2", k2_bound)):
-        log(f"phase 5 {name} bound: {bms:.4f} ms ({by}); {n['records']} "
-            f"records walked ({n['small']} of the tiles' lists, "
-            f"{n['big']} of the big lists once per env; {n['unique']} "
-            f"distinct, read once), {n['covered']} "
-            f"covered pixel-record pairs, {n['wins']} wins; {n['bytes']} B, "
-            f"{n['flops']} flop; pixel-record tests: brute force "
-            f"{n['tests']}, the kernel after its per-warp reject "
-            f"{n['kernel_tests']} ({n['kept']} of {n['warp_records']} "
-            f"warp-records kept)")
+    log_bounds("phase 5", (("K1", k1_bound), ("K2", k2_bound)))
 
     # ------------------------------------- 5c end-to-end vs the CPU path
-    cpu_renderer = SceneRenderer(
-        tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, rt),
-        tree_map(lambda x: x.cpu(), lights), opts,
-        skip_culling=ent.skip_culling.cpu(),
-        static_shadow=tuple(x.cpu() for x in static),
-        lod_scale=RES / 720.0)
-    ref = cpu_renderer(tree_map(lambda x: x[:2].cpu(), st))
-    mse = ((imgs[:2].cpu() - ref) ** 2).reshape(2, -1).mean(1)
-    psnr = [10 * math.log10(1.0 / max(float(m), 1e-12)) for m in mse]
+    psnr = cpu_psnr(w5, d5)
     log(f"phase 5 end-to-end: envs 0-1 CUDA frame vs plain CPU path PSNR "
         f"{psnr[0]:.1f} / {psnr[1]:.1f} dB")
     require(min(psnr) >= 35.0, "end-to-end PSNR >= 35 dB")
 
-    del gs, imgs, renderer, cpu_renderer, ref, st, st1, geom, rec, binned
+    del d5, gs, imgs, renderer, st, geom, rec, binned, tile_args
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 6
@@ -340,6 +309,10 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 7
     run_skinning_phase(dev, smi, require)
+
+    # ---------------------------------------------------------------- 8
+    tex = run_textured_phase(dev, smi, require, sync, check_tile,
+                             check_depth)
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
     # or a multi-generation CA
@@ -349,12 +322,18 @@ def main() -> int:
          "replaces": "clap_tpu/render/raster.py:1041",
          "launches": launches["raster_tile"], "max_abs_err": tile_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "textured_launches": tex["launches"]["raster_tile"],
+         "textured_max_abs_err": tex["max_abs_err"],
+         "textured_ms": tex["ms"], "textured_plain_ms": tex["plain_ms"],
+         "textured_bound_ms": tex["bound"][0],
+         "textured_bound_by": tex["bound"][1]},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "clap_tpu/render/raster.py:633",
          "launches": launches["raster_depth"], "max_abs_err": depth_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "textured_launches": tex["launches"]["raster_depth"]},
         {"name": "ca2d_run_fused", "route": "cuda",
          "source": "clap_tpu_torch/csrc/ca2d.cu",
          "replaces": "clap_tpu/ops/ca2d.py:192",
@@ -397,13 +376,16 @@ def time_ms(fn, args, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def build_slice(dev, n_envs=N_SLICE):
+def build_slice(dev, n_envs=N_SLICE, textured=False):
     """The slice's world on ``dev``: the composed testbed of bench.py:544-625
     (2 chars, 4 terrain chunks, 96 entities, record_compact 8192, raster_cap
-    2048, kernel_attrs, one directional light) with the game wiring of
-    bench.py:546-559 (the terrain a permanent switch, the demo rig on both
-    characters), ``n_envs`` envs at their first state, moving +x. Returns a
-    dict: tb, ent, rt, lights, opts, gw, gs, ins."""
+    2048, one directional light) with skinned characters (bench.py:565-588)
+    and the game wiring of bench.py:546-559 (the terrain a permanent switch,
+    the demo rig on both characters), ``n_envs`` envs at their first state,
+    moving +x. ``textured``: the textured models and textures of the
+    ``step_and_render_textured`` config (bench.py:566-575); kernel_attrs
+    holds where the tables allow it, as bench.py:620-621 sets it. Returns a
+    dict: tb, ent, rt, cs, textures, lights, opts, gw, gs, ins."""
     import torch
 
     from clap_tpu_torch.anim.system import anim_instances_init
@@ -416,6 +398,7 @@ def build_slice(dev, n_envs=N_SLICE):
     from clap_tpu_torch.render.pipeline import RenderOptions
     from clap_tpu_torch.render.scenerender import (build_render_tables,
                                                    default_edge_ids,
+                                                   kernel_attrs_ok,
                                                    shadow_static_mask)
     from clap_tpu_torch.scene import testbed as tbm
 
@@ -423,11 +406,13 @@ def build_slice(dev, n_envs=N_SLICE):
                            max_entities=96, n_chars=2, terrain_chunks=4,
                            device=dev)
     ent = tb.cfg.entities
+    models = tbm.testbed_models(tb, skinned_chars=True, textured=textured)
     rt = build_render_tables(
-        tbm.testbed_models(tb, skinned_chars=False, textured=False),
-        ent.model_id, ent.active,
+        models, ent.model_id, ent.active,
         entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
         entity_shadow_static=shadow_static_mask(ent), device=dev)
+    cs = tbm.build_testbed_char_skin(tb, models, rt, device=dev)
+    textures = tbm.testbed_textures(device=dev) if textured else None
     lights = lights_empty(1, device=dev)
     d = torch.tensor([-0.4, -0.8, -0.4], device=dev)
     lights.direction[0] = d / torch.linalg.vector_norm(d)
@@ -436,7 +421,7 @@ def build_slice(dev, n_envs=N_SLICE):
     lights.active[0] = True
     opts = RenderOptions(width=RES, height=RES, shadow_size=256,
                          film_grain=0.0, record_compact=8192,
-                         raster_cap=2048, kernel_attrs=True)
+                         raster_cap=2048, kernel_attrs=kernel_attrs_ok(rt))
     sk, lib, acfg = tbm.build_demo_rig(device=dev)
     gcfg = game_config_empty(1, 96, device=dev)._replace(
         switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
@@ -451,23 +436,191 @@ def build_slice(dev, n_envs=N_SLICE):
     ins = tree_map(lambda x: x.expand(n_envs, *x.shape).clone(),
                    inputs_zero(2, device=dev))
     ins.motion[:, 0, 0] = 1.0
-    return dict(tb=tb, ent=ent, rt=rt, lights=lights, opts=opts, gw=gw,
-                gs=gs, ins=ins)
+    return dict(tb=tb, ent=ent, rt=rt, cs=cs, textures=textures,
+                lights=lights, opts=opts, gw=gw, gs=gs, ins=ins)
 
 
-def frame_records(renderer, opts, lights, st):
-    """The records and bins of state ``st``'s main pass and cascade atlas:
-    (geometry, rec, binned, srec, sbin, (w, h, th, tw))."""
-    from clap_tpu_torch.render.pipeline import shadow_records, surface_records
+def make_renderer(w, static, to=None):
+    """The SceneRenderer of a ``build_slice`` world with the baked static
+    shadow; ``to="cpu"`` makes a copy of it on the CPU."""
+    import torch
+
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.engine.frame import SceneRenderer
+
+    def mv(t):
+        return tree_map(lambda x: x.to(to) if to is not None
+                        and torch.is_tensor(x) else x, t)
+
+    return SceneRenderer(mv(w["rt"]), mv(w["lights"]), w["opts"],
+                         skip_culling=mv(w["ent"].skip_culling),
+                         static_shadow=mv(static), lod_scale=RES / 720.0,
+                         char_skin=mv(w["cs"]), textures=mv(w["textures"]))
+
+
+def drive_frames(w, sync, require, frames=10):
+    """The driven run of a ``build_slice`` world: the launch counts start
+    at 0, the static shadow bakes, then 1 warm-up and ``frames`` timed
+    frames of step_and_render. Returns a dict: renderer, static, gs, imgs,
+    st, st1 / jm1 (state and joint matrices after frame 1), launches, dt
+    (s/frame), warm (s), peak (bytes), summary (a line of checks)."""
+    import torch
+
+    from clap_tpu_torch.engine.frame import step_and_render
+    from clap_tpu_torch.render import raster as R
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    gw, gs, ins = w["gw"], w["gs"], w["ins"]
+    n = gs.engine.frame.shape[0]
+    frame0 = gs.engine.frame.clone()
+    torch.cuda.reset_peak_memory_stats()
+    R.raster_tile.launches = 0
+    R.raster_depth.launches = 0
+    t0 = time.perf_counter()
+    static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                w["lights"].direction[0], shadow_size=1024,
+                                far=200.0)
+    renderer = make_renderer(w, static)
+    gs, imgs = step_and_render(gw, renderer, gs, ins)
+    sync()
+    warm = time.perf_counter() - t0
+    st1, jm1 = gs.engine, gs.joint_mats.clone()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        gs, imgs = step_and_render(gw, renderer, gs, ins)
+    sync()
+    dt = (time.perf_counter() - t0) / frames
+    launches = {"raster_tile": R.raster_tile.launches,
+                "raster_depth": R.raster_depth.launches}
+    peak = torch.cuda.max_memory_allocated()
+    st = gs.engine
+    require(bool(((st.frame - frame0) == frames + 1).all()),
+            f"frame counter +{frames + 1}")
+    require(bool((gs.anim.queue.clip[..., 0] >= 0).all()),
+            "every rig plays an animation clip")
+    require(bool(torch.isfinite(gs.joint_mats).all()),
+            "joint matrices finite")
+    require(bool(torch.isfinite(imgs).all()), "images finite")
+    std = imgs.reshape(n, -1).std(dim=1)
+    luma = imgs.reshape(n, -1).mean(dim=1)
+    require(bool((std > 0.01).all()), "per-env image std > 0.01")
+    require(bool(((luma > 0.02) & (luma < 0.98)).all()),
+            "per-env mean luma in (0.02, 0.98)")
+    require(all(v > 0 for v in launches.values()),
+            f"every kernel launched on the path: {launches}")
+    summary = (f"image std min {float(std.min()):.4f}, mean luma "
+               f"{float(luma.min()):.4f}..{float(luma.max()):.4f}, switch "
+               f"on in {int(gs.game.switch_on[:, 0].sum())}/{n} envs, clips "
+               f"{sorted(set(gs.anim.queue.clip[..., 0].flatten().tolist()))}")
+    return dict(renderer=renderer, static=static, gs=gs, imgs=imgs, st=st,
+                st1=st1, jm1=jm1, launches=launches, dt=dt, warm=warm,
+                peak=peak, summary=summary)
+
+
+def cpu_psnr(w, d):
+    """PSNR of envs 0-1 of the driven run's last frame against the same
+    state rendered by the plain CPU path (a CPU copy of the renderer)."""
+    from clap_tpu_torch.bridge import tree_map
+
+    cpu = make_renderer(w, tuple(x.cpu() for x in d["static"]), to="cpu")
+    ref = cpu(tree_map(lambda x: x[:2].cpu(), d["st"]),
+              d["gs"].joint_mats[:2].cpu())
+    mse = ((d["imgs"][:2].cpu() - ref) ** 2).reshape(2, -1).mean(1)
+    return [10 * math.log10(1.0 / max(float(m), 1e-12)) for m in mse]
+
+
+def frame_records(renderer, st, joint_mats=None):
+    """The records and bins of state ``st``'s main pass (22-column extras
+    records on the kernel-attrs path, 19-column barycentric records on the
+    gather path) and cascade atlas: (geometry, rec, binned, srec, sbin, (w,
+    h, th, tw))."""
+    from clap_tpu_torch.render.pipeline import (clip_transform,
+                                                gather_records,
+                                                shadow_records,
+                                                surface_records)
     from clap_tpu_torch.render.view import cascade_subviews
 
+    opts = renderer.opts
     views = renderer.views(st)
-    geom = renderer.geometry(st, views)
-    rec, binned, _ = surface_records(opts, geom)
-    casc, _ = cascade_subviews(views, renderer.proj, lights.direction[0],
-                               0.1, 200.0)
+    geom = renderer.geometry(st, views, joint_mats)
+    if renderer.cluster_records:
+        rec, binned, _ = surface_records(opts, geom)
+    else:
+        clip = clip_transform(geom.verts, views, renderer.proj)
+        rec, binned = gather_records(opts, geom, clip)[:2]
+    casc, _ = cascade_subviews(views, renderer.proj,
+                               renderer.lights.direction[0], 0.1, 200.0)
     srec, sbin, dims = shadow_records(opts, geom, casc.view, casc.proj)
     return geom, rec, binned, srec, sbin, dims
+
+
+def log_bounds(phase, bounds):
+    """One line per kernel: its bound from ``walk_bound`` and the counts."""
+    for name, (bms, by, n) in bounds:
+        log(f"{phase} {name} bound: {bms:.4f} ms ({by}); {n['records']} "
+            f"records walked ({n['small']} of the tiles' lists, "
+            f"{n['big']} of the big lists once per env; {n['unique']} "
+            f"distinct, read once), {n['covered']} "
+            f"covered pixel-record pairs, {n['wins']} wins; {n['bytes']} B, "
+            f"{n['flops']} flop; pixel-record tests: brute force "
+            f"{n['tests']}, the kernel after its per-warp reject "
+            f"{n['kernel_tests']} ({n['kept']} of {n['warp_records']} "
+            f"warp-records kept)")
+
+
+def run_textured_phase(dev, smi, require, sync, check_tile, check_depth):
+    """Phase 8: the JAX bench's ``step_and_render_textured`` config
+    (bench.py:566-575, 620-666) at 64 envs × 256²: skinned and textured
+    characters, textured trees, so the tables are not flat-eligible and
+    the frame takes the member-granularity assembly and the per-pixel
+    attribute gather, K1 in barycentric mode. Checks as phase 5, K1
+    bit-exact on frame 11's records and timed beside its plain version,
+    its input preparation and its bound; two envs against the CPU path."""
+    import torch
+
+    from clap_tpu_torch.render import raster as R
+
+    w = build_slice(dev, textured=True)
+    require(not w["opts"].kernel_attrs, "textured tables take the gather "
+            "path (kernel_attrs_ok false)")
+    d = drive_frames(w, sync, require)
+    renderer, gs = d["renderer"], d["gs"]
+    require(not renderer.cluster_records, "member-granularity assembly")
+    log(f"phase 8 textured (skinned + textured, gather path): {N_SLICE} envs"
+        f" x {RES}^2, {d['dt'] * 1e3:.2f} ms/frame, "
+        f"{N_SLICE / d['dt']:.1f} env-fps, warm-up frame (bake included) "
+        f"{d['warm']:.2f} s, peak memory {d['peak'] / 2**30:.2f} GiB, "
+        f"{d['summary']} ({smi})")
+    log(f"phase 8 launches in the driven run: {d['launches']}")
+    geom, rec, binned, srec, sbin, dims = frame_records(renderer, d["st"],
+                                                        gs.joint_mats)
+    stats = R.bin_stats(binned)
+    log(f"phase 8 records: {rec.shape[1]}-column, {rec.shape[-1]} per env "
+        f"(2 x record_compact {renderer.opts.record_compact}), main-pass "
+        f"tiles at capacity {stats['tiles_at_cap']}/{stats['n_tiles']} (max "
+        f"{stats['max_per_tile']} of {stats['cap']} records)")
+    args = R.kernel_inputs(rec, binned, RES, RES)
+    _, _, err = check_tile(f"textured frame 11 all {N_SLICE} envs "
+                           f"(barycentric records)", args)
+    check_depth(f"textured frame 11 all {N_SLICE} envs cascade atlas",
+                R.kernel_inputs(srec, sbin, *dims, depth_only=True))
+    ms = time_ms(R.raster_tile, args, 20)
+    plain = time_ms(R.raster_tile_ref, args, 3)
+    prep = time_ms(R.kernel_inputs, (rec, binned, RES, RES), 20)
+    bound = walk_bound(R, R.raster_tile_ref, args, R.NCOEF, 5, 12)
+    log(f"phase 8 kernel timing ({N_SLICE} envs, frame 11 inputs): K1 "
+        f"raster_tile {ms:.3f} ms vs plain {plain:.3f} ms; input "
+        f"preparation (kernel_inputs) {prep:.3f} ms ({smi})")
+    log_bounds("phase 8", (("K1", bound),))
+    psnr = cpu_psnr(w, d)
+    log(f"phase 8 end-to-end: envs 0-1 CUDA frame vs plain CPU path PSNR "
+        f"{psnr[0]:.1f} / {psnr[1]:.1f} dB")
+    require(min(psnr) >= 35.0, "textured end-to-end PSNR >= 35 dB")
+    out = dict(launches=d["launches"], max_abs_err=err, ms=ms,
+               plain_ms=plain, bound=bound)
+    del d, renderer, gs, geom, rec, binned, args
+    torch.cuda.empty_cache()
+    return out
 
 
 def bake_records(rt, tb, lights):

@@ -29,6 +29,7 @@ from .physics.heightfield import Heightfield
 from .physics.narrowphase import StaticWorld
 from .physics.world import BodyParams, PhysState
 from .render.lights import Lights
+from .render.pipeline import TextureSets
 from .render.scenerender import RenderTables
 
 _TYPES = {cls.__name__: cls for cls in (
@@ -36,7 +37,7 @@ _TYPES = {cls.__name__: cls for cls in (
     Heightfield, BodyParams, PhysState, CharParams, CharState, Inputs,
     RenderTables, Lights, AnimLibrary, Pose, Skeleton, AnimQueue,
     AnimConfig, AnimInstance, AnimSfx, GameConfig, GameState, ParticleParams,
-    GameWorld, GameSessionState)}
+    GameWorld, GameSessionState, TextureSets)}
 
 # host-side (trace-time) flags that stay Python bools in the port
 _PY_BOOL_FIELDS = {"any_material", "flat_eligible", "camera_occlusion"}

@@ -3,10 +3,13 @@ core/pipeline.c + pipeline-builder.c:182-613).
 
 Each pass is a function over batched image tensors and the "graph" is
 function composition assembled from RenderOptions. The chain ported here
-is the composed frame of the kernel-attrs cluster-record path:
+is the composed frame:
 
-  4-cascade VSM shadow atlas (K2) → model pass (K1 G-buffer, kernel-
-  interpolated normals, per-entity flat materials, deferred GGX with the
+  4-cascade VSM shadow atlas (K2) → model pass (K1 G-buffer; surface
+  attributes either kernel-interpolated normals with per-entity flat
+  materials — ``kernel_attrs`` over cluster records — or the per-pixel
+  gather of interpolated vertex attributes with textures, TBN and
+  material fBm — member-granularity geometry; deferred GGX with the
   static × dynamic shadow factor) → sobel edges → SMAA-lite → shift SSAO
   → bloom → fog → contrast → ACES → outlines → sRGB OETF.
 
@@ -25,8 +28,9 @@ from .. import mathx as mx
 from . import post, shade
 from .lights import Lights, light_grid
 from .raster import (CLUSTER, GBuffer, assemble_tri_records, bin_triangles,
-                     clip_near_records, ent_pack_stride, project_to_screen,
-                     rasterize_attrs, rasterize_depth, tile_dims)
+                     clip_near_records, compact_faces, ent_pack_stride,
+                     project_to_screen, rasterize, rasterize_attrs,
+                     rasterize_depth, tile_dims)
 from .view import cascade_subviews
 
 
@@ -34,7 +38,7 @@ from .view import cascade_subviews
 class RenderOptions:
     """render_options (pipeline.h:15-57): the JAX package's RenderOptions
     and defaults, without the fields only unported paths read
-    (attr_bf16, fog_3d_amp, fog_3d_scale)."""
+    (fog_3d_amp, fog_3d_scale)."""
 
     width: int = 1280
     height: int = 720
@@ -65,6 +69,7 @@ class RenderOptions:
     shadow_outline_threshold: float = 0.5
     outline_strength: float = 0.35
     raster_cap: int = 0
+    attr_bf16: bool = False     # the gather path's per-triangle table in bf16
     kernel_attrs: bool = False
 
 
@@ -72,7 +77,10 @@ class SceneGeometry(NamedTuple):
     """Render geometry (fields as in the JAX package). In the batched
     cluster-record path ``comp``/``comp_valid``/``comp_ent``,
     ``ent_rot``, ``shadow_face_valid`` and ``shadow_corner_verts`` carry a
-    leading env axis; tables (faces, ent_flat, shadow_faces) are shared."""
+    leading env axis; tables (faces, ent_flat, shadow_faces) are shared.
+    In the member-granularity path ``verts``, ``face_valid``, ``ent_rot``
+    and ``shadow_face_valid`` are per env; the attribute tables (model-
+    local normals, materials, uv, ...) and faces are shared."""
 
     verts: torch.Tensor
     normals: torch.Tensor
@@ -100,12 +108,26 @@ class SceneGeometry(NamedTuple):
     comp_ent: torch.Tensor = None
 
 
+class TextureSets(NamedTuple):
+    """Per-model texture layers (model3dtx's diffuse/normal/emission set,
+    model.h:213-223), stacked and indexed by SceneGeometry.tex_id."""
+
+    diffuse: torch.Tensor              # (L, S, S, 3)
+    normal: torch.Tensor = None        # (L, S, S, 3) tangent space, [0, 1]
+    emission: torch.Tensor = None      # (L, S, S, 3)
+    # terrain atlas layers (terrain.frag:39-46): diffuse is a 2×2 atlas,
+    # grass at the origin quadrant and rock at +0.5, blended by slope
+    slope_blend: torch.Tensor = None   # (L,) bool
+
+
 def clip_transform(verts, view, proj):
     """World points (B, V, 3) → clip (B, V, 4) with per-env view (B, 4, 4)
-    and a shared or per-env proj."""
-    vp = proj @ view
-    v4 = torch.cat([verts, torch.ones_like(verts[..., :1])], -1)
-    return v4 @ vp.transpose(-1, -2)
+    and a shared or per-env proj. Each row is summed in pairs,
+    (m0·x + m1·y) + (m2·z + m3), the order of the JAX package's einsum on
+    the CPU: sliver triangles amplify one ulp of a corner into depth."""
+    vp = (proj @ view)[..., None, :, :]                    # (B, 1, 4, 4)
+    x, y, z = (verts[..., i, None] for i in range(3))
+    return (vp[..., 0] * x + vp[..., 1] * y) + (vp[..., 2] * z + vp[..., 3])
 
 
 def shadow_records(opts: RenderOptions, geom: SceneGeometry, casc_views,
@@ -228,23 +250,194 @@ def _surface_kernel_attrs(opts: RenderOptions, geom: SceneGeometry):
             px[..., 14:17], eid_px)
 
 
+def gather_records(opts: RenderOptions, geom: SceneGeometry, clip):
+    """Near-clipped 19-column barycentric records of every env's member-
+    granularity geometry (clip (B, V, 4)) and their binning, after the
+    valid-first face compaction of ``opts.record_compact``. Returns (rec,
+    binned, faces, face_entity, csrc): faces (B, T, 3) and
+    face_entity (B, T) per env when compacted, else the shared tables."""
+    if geom.corner_verts is not None:
+        raise NotImplementedError("corner-expanded static streams "
+                                  "(corner_verts)")
+    W, H = opts.width, opts.height
+    faces, fvalid, face_entity = geom.faces, geom.face_valid, \
+        geom.face_entity
+    if opts.record_compact:
+        faces, fvalid, face_entity = compact_faces(
+            faces, fvalid, opts.record_compact, extra=face_entity)
+    rec, ok, csrc, _ = clip_near_records(clip, faces, W, H, fvalid)
+    binned = bin_triangles(rec, ok, W, H, cap=opts.raster_cap or None)
+    return rec, binned, faces, face_entity, csrc
+
+
+def texture_layer(tex_id_px):
+    """Each pixel's texture layer from its interpolated per-vertex tex_id
+    (-1: untextured). Returns (layer int32, textured bool). A constant id
+    k interpolates to k - 1 ulp on about 5 % of pixels, so it is rounded;
+    the JAX package truncates and samples layer k - 1 there."""
+    return torch.floor(tex_id_px + 0.5).to(torch.int32), tex_id_px >= -0.5
+
+
+def _surface_gather(opts: RenderOptions, geom: SceneGeometry, clip,
+                    base_texture=None, textures=None):
+    """Surface attributes through the per-pixel attribute gather (the
+    general path: per-vertex materials, textures, TBN, material fBm): K1
+    in barycentric mode, then one gather of the packed per-triangle record
+    per pixel. World position is not interpolated (it comes from depth)."""
+    W, H = opts.width, opts.height
+    rec, binned, faces, face_entity, csrc = gather_records(opts, geom, clip)
+    gb = rasterize(rec, binned, W, H)
+    B = gb.tri_id.shape[0]
+
+    # optional streams pack behind the core 11 columns
+    streams = [geom.normals, geom.base_color, geom.rough_metal,
+               geom.emission]
+    off = {}
+    cursor = 11
+    textured = geom.uv is not None and (
+        base_texture is not None or textures is not None)
+    if textured:
+        off["uv"] = cursor
+        streams.append(geom.uv)
+        cursor += 2
+    tbn = (textures is not None and textures.normal is not None
+           and geom.tangent is not None)
+    if tbn:
+        off["tangent"] = cursor
+        streams.append(geom.tangent)
+        cursor += 4
+    if textures is not None and geom.tex_id is not None:
+        off["tex_id"] = cursor
+        streams.append(geom.tex_id[:, None].float())
+        cursor += 1
+    fbm_on = geom.mat_fbm is not None and geom.local_pos is not None
+    if fbm_on:
+        off["local"] = cursor
+        streams.append(geom.local_pos)
+        cursor += 3
+        off["fbm"] = cursor
+        streams.append(geom.mat_fbm)
+        cursor += 6
+    if geom.edge_id is not None:
+        off["edge"] = cursor
+        streams.append(geom.edge_id[:, None])
+        cursor += 1
+    vattrs = torch.cat(streams, dim=-1)
+    local_mode = geom.ent_rot is not None and face_entity is not None
+    tdt = torch.bfloat16 if opts.attr_bf16 else None
+    Rpx = None
+    if local_mode:
+        # the face's entity rides the same gather as a flat column
+        attrs, flat_px = shade.interpolate_attrs(
+            gb, faces, vattrs, csrc,
+            face_attrs=face_entity[..., None].float(), table_dtype=tdt)
+        # model-local attributes rotate by the pixel's entity; background
+        # (-1) and any id outside the table take the zero row
+        n_ent = geom.ent_rot.shape[-3]
+        fe = flat_px[..., 0].to(torch.int32)
+        fe = torch.where((fe >= 0) & (fe < n_ent), fe, n_ent).long()
+        tbl = torch.cat([geom.ent_rot.reshape(B, n_ent, 9),
+                         geom.ent_rot.new_zeros(B, 1, 9)], dim=1)
+        Rpx = torch.gather(tbl, 1, fe.reshape(B, -1, 1).expand(-1, -1, 9)
+                           ).reshape(*fe.shape, 3, 3)
+    else:
+        attrs = shade.interpolate_attrs(gb, faces, vattrs, csrc,
+                                        table_dtype=tdt)
+
+    def rot(v):
+        return v if Rpx is None else (Rpx @ v[..., None])[..., 0]
+
+    def unit(v):
+        return v / torch.clamp(torch.sqrt(torch.sum(v * v, -1, keepdim=True)),
+                               min=1e-6)
+
+    nrm = unit(rot(attrs[..., 0:3]))
+    base = attrs[..., 3:6]
+    rough = attrs[..., 6]
+    metal = attrs[..., 7]
+    emission = attrs[..., 8:11]
+
+    if textured:
+        from .texture import sample_bilinear, sample_layered
+
+        uv_px = attrs[..., off["uv"]:off["uv"] + 2]
+        if textures is not None:
+            if "tex_id" in off:
+                lid, has_tex = texture_layer(attrs[..., off["tex_id"]])
+            else:
+                lid = torch.zeros(gb.tri_id.shape, dtype=torch.int32,
+                                  device=gb.tri_id.device)
+                has_tex = torch.ones_like(gb.tri_id, dtype=torch.bool)
+            texel = sample_layered(textures.diffuse, lid, uv_px)
+            if textures.slope_blend is not None:
+                # grass/rock atlas blended by the geometric normal's slope
+                # (terrain.frag:39-46)
+                uv_q = torch.remainder(uv_px, 0.5)
+                grass = sample_layered(textures.diffuse, lid, uv_q)
+                rock = sample_layered(textures.diffuse, lid, uv_q + 0.5)
+                fac = torch.clamp(nrm[..., 1], 0.0, 1.0)[..., None] ** 4
+                sb = textures.slope_blend[torch.clamp(
+                    lid, 0, textures.slope_blend.shape[0] - 1).long()]
+                texel = torch.where(sb[..., None],
+                                    grass * fac + rock * (1.0 - fac), texel)
+            base = torch.where(has_tex[..., None], base * texel, base)
+            if tbn:
+                # TBN normal mapping (model.vert:54-67, lighting.glsl:174)
+                t4 = attrs[..., off["tangent"]:off["tangent"] + 4]
+                t = rot(t4[..., :3])
+                t = unit(t - torch.sum(t * nrm, -1, keepdim=True) * nrm)
+                b = torch.cross(nrm, t, dim=-1) * t4[..., 3:4]
+                nm = sample_layered(textures.normal, lid, uv_px) * 2.0 - 1.0
+                mapped = unit(t * nm[..., 0:1] + b * nm[..., 1:2]
+                              + nrm * nm[..., 2:3])
+                nrm = torch.where(has_tex[..., None], mapped, nrm)
+            if textures.emission is not None:
+                em_tex = sample_layered(textures.emission, lid, uv_px)
+                emission = torch.where(has_tex[..., None],
+                                       emission + em_tex, emission)
+        else:
+            base = base * sample_bilinear(base_texture, uv_px)[..., :3]
+
+    if fbm_on:
+        # procedural roughness/metallic of the local position
+        # (lighting.glsl:20-50)
+        lp = attrs[..., off["local"]:off["local"] + 3]
+        fp = attrs[..., off["fbm"]:off["fbm"] + 6]
+        f = shade.material_fbm(lp, fp[..., 0], 4, fp[..., 1:2])
+        use = fp[..., 0] > 0
+        rough = torch.where(use, fp[..., 2] + (fp[..., 3] - fp[..., 2]) * f,
+                            rough)
+        metal = torch.where(use, fp[..., 4] + (fp[..., 5] - fp[..., 4]) * f,
+                            metal)
+    eid_px = attrs[..., off["edge"]] if "edge" in off else None
+    return gb, nrm, base, rough, metal, emission, eid_px
+
+
 def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
                cam_proj, lights: Lights, eye, shadow_moments=None,
-               shadow_mvps=None, cascade_dists=None, static_shadow=None):
+               shadow_mvps=None, cascade_dists=None, base_texture=None,
+               textures=None, static_shadow=None):
     """MRT model pass (pipeline-builder.c:329-364) as raster + deferred
-    shading. Returns (hdr, emission, view normals, gbuffer, view_pos,
-    edge_meta)."""
-    if not opts.kernel_attrs:
-        raise NotImplementedError("the per-pixel attribute gather path "
-                                  "(_surface_gather)")
+    shading: kernel-side attributes over cluster records
+    (``opts.kernel_attrs``) or the per-pixel attribute gather over
+    member-granularity geometry. Returns (hdr, emission, view normals,
+    gbuffer, view_pos, edge_meta)."""
     if not opts.shadow_vsm:
         raise NotImplementedError("PCF shadows (shadow_vsm=False)")
     if opts.material_fog:
         raise NotImplementedError("material_fog")
     W, H = opts.width, opts.height
     dev = cam_view.device
-    gb, nrm, base, rough, metal, emission, eid_px = \
-        _surface_kernel_attrs(opts, geom)
+    if opts.kernel_attrs:
+        gb, nrm, base, rough, metal, emission, eid_px = \
+            _surface_kernel_attrs(opts, geom)
+    elif geom.comp is not None:
+        raise ValueError("cluster-record geometry (comp) requires "
+                         "opts.kernel_attrs")
+    else:
+        clip = clip_transform(geom.verts, cam_view, cam_proj)
+        gb, nrm, base, rough, metal, emission, eid_px = _surface_gather(
+            opts, geom, clip, base_texture, textures)
 
     # world position from depth (inverse view-projection unproject)
     hit2 = gb.tri_id >= 0
@@ -320,7 +513,9 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
                  static_shadow=None, grain_noise=None, lut_volume=None,
                  particles=None, textures=None, base_texture=None):
     """The canonical frame for every env: cam_view (B, 4, 4), cam_proj
-    (4, 4), eye (B, 3). Returns the LDR image (B, H, W, 3)."""
+    (4, 4), eye (B, 3). ``textures`` (TextureSets, by each vertex's
+    tex_id) or ``base_texture`` (one (S, S, C) texture) shade the
+    gather path. Returns the LDR image (B, H, W, 3)."""
     for flag, name in ((opts.internal_scale > 1, "internal_scale > 1"),
                        (opts.model_msaa > 1, "model_msaa > 1"),
                        (opts.ssao and opts.ssao_mode != "shift",
@@ -330,9 +525,7 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
                        (not opts.edge_sobel, "laplace edges"),
                        (particles is not None, "particles"),
                        (grain_noise is not None, "film grain"),
-                       (lut_volume is not None, "lighting LUT"),
-                       (textures is not None or base_texture is not None,
-                        "textures")):
+                       (lut_volume is not None, "lighting LUT")):
         if flag:
             raise NotImplementedError(name)
     W, H = opts.width, opts.height
@@ -349,7 +542,8 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
 
     hdr, emit, vnrm, gb, vpos, edge_meta = model_pass(
         opts, geom, cam_view, cam_proj, lights, eye, shadow_moments,
-        shadow_mvps, cascade_dists, static_shadow=static_shadow)
+        shadow_mvps, cascade_dists, base_texture=base_texture,
+        textures=textures, static_shadow=static_shadow)
 
     if edge_meta is not None:
         key, excl = edge_meta
@@ -408,8 +602,8 @@ def render_frame_dynamic_batch(opts: RenderOptions, geom: SceneGeometry,
                                cam_views, cam_proj, lights: Lights, eyes,
                                far: float = 200.0, **kw):
     """Render B envs with PER-ENV dynamic geometry (the composed
-    step-and-render frame): geom from assemble_cluster_records_batch,
-    cam_views (B, 4, 4), eyes (B, 3); each env fits and renders its own
-    CSM atlas. Returns (B, H, W, 3)."""
+    step-and-render frame): geom from assemble_cluster_records_batch or
+    assemble_scene_geometry_batch, cam_views (B, 4, 4), eyes (B, 3); each
+    env fits and renders its own CSM atlas. Returns (B, H, W, 3)."""
     return render_frame(opts, geom, cam_views, cam_proj, lights, eyes,
                         far=far, **kw)

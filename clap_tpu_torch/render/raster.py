@@ -186,7 +186,8 @@ def clip_near_records(clip_verts, faces, width: int, height: int,
     ``components``: per-corner clip-space columns
     ``[[x, y, z, w(, nx, ny, nz)] for each face corner]`` of (..., T)
     tensors (the cluster-record path); otherwise corners are gathered from
-    ``clip_verts`` (..., V, 4) by ``faces``. With extras (normals) the
+    ``clip_verts`` (..., V, 4) by ``faces``, (T, 3) shared or (B, T, 3) per
+    env with clip_verts (B, V, 4). With extras (normals) the
     record has 22 columns (extras layout); without, 19 (cb pairs).
 
     Returns (rec (..., C, 2T), ok (..., 2T), csrc (2T,), cbary or None)."""
@@ -198,11 +199,19 @@ def clip_near_records(clip_verts, faces, width: int, height: int,
         NC = len(v[0])
         dev = v[0][0].device
     else:
-        T = clip_verts.shape[-2] // 3 if pre_expanded else faces.shape[0]
+        T = clip_verts.shape[-2] // 3 if pre_expanded else faces.shape[-2]
         src = clip_verts if vextra is None else \
             torch.cat([clip_verts, vextra], dim=-1)
         NC = src.shape[-1]
-        g = src if pre_expanded else src[..., faces.T.reshape(-1).long(), :]
+        if pre_expanded:
+            g = src
+        elif faces.dim() == 3:
+            # per-env faces (B, T, 3), e.g. after compact_faces
+            idx = faces.transpose(-1, -2).reshape(faces.shape[0], 3 * T)
+            g = torch.gather(src, -2, idx.long()[..., None].expand(
+                *idx.shape, NC))
+        else:
+            g = src[..., faces.T.reshape(-1).long(), :]
         gt = g.transpose(-1, -2)                               # (..., NC, 3T)
         v = [[gt[..., i, c * T:(c + 1) * T] for i in range(NC)]
              for c in range(3)]

@@ -4,10 +4,13 @@ model.c:742-1086, the draw loop with per-entity cull and LOD select).
 
 At scene load every active entity gets an instanced copy of its model in
 one concatenated table (``build_render_tables``, host numpy). Per frame
-the cluster-record front end (``assemble_cluster_records_batch``) culls
-entities and clusters, picks each entity's LOD by distance, compacts the
-valid clusters and transforms their rest-pose corners straight to clip
-space — one batched pass for every env.
+the cluster-record front end (``assemble_cluster_records_batch``, the
+kernel-attrs path) culls entities and clusters, picks each entity's LOD
+by distance, compacts the valid clusters and transforms their rest-pose
+corners straight to clip space — one batched pass for every env. Tables
+with per-vertex or textured materials take the member-granularity
+assembly (``assemble_scene_geometry_batch``) and the per-pixel gather
+path. Both take skinned characters (``charskin.CharSkin``).
 """
 from __future__ import annotations
 
@@ -85,16 +88,21 @@ def model_from_mesh(verts, normals, faces, base_color=(0.7, 0.7, 0.7),
                     with_lods: bool = True, uv=None, tex_id: int = -1,
                     mat_fbm=None) -> ModelData:
     """ModelData with LOD chains (native simplifier), each LOD's faces in
-    Morton order so binning clusters are compact spatial patches.
-    Textured / fBm materials (uv, tex_id, mat_fbm) are not ported yet."""
-    if uv is not None or tex_id >= 0 or mat_fbm is not None:
-        raise NotImplementedError("textured / fBm material models")
+    Morton order so binning clusters are compact spatial patches. With
+    ``uv`` the per-vertex tangents come from the LOD 0 faces
+    (compute_tangents); ``tex_id`` is the model's texture layer and
+    ``mat_fbm`` its (amp, scale, rough floor/ceil, metal floor/ceil)."""
     verts = np.asarray(verts, np.float32)
     V = len(verts)
     lods = build_lods(verts, np.asarray(faces).reshape(-1)) if with_lods \
         else [np.asarray(faces, np.uint32).reshape(-1)]
     lods = [cluster_faces(verts, l.reshape(-1, 3))[0].reshape(-1)
             for l in lods]
+    tangent = None
+    if uv is not None:
+        uv = np.asarray(uv, np.float32)
+        tangent = compute_tangents(verts, np.asarray(normals, np.float32),
+                                   uv, lods[0].reshape(-1, 3))
     return ModelData(
         verts=verts,
         normals=np.asarray(normals, np.float32),
@@ -105,7 +113,36 @@ def model_from_mesh(verts, normals, faces, base_color=(0.7, 0.7, 0.7),
         emission=np.broadcast_to(np.asarray(emission, np.float32),
                                  (V, 3)).copy(),
         lod_faces=[l.reshape(-1, 3) for l in lods],
+        uv=uv, tangent=tangent, tex_id=tex_id, mat_fbm=mat_fbm,
     )
+
+
+def compute_tangents(verts, normals, uvs, faces):
+    """Per-vertex tangents from uv gradients (Lengyel's accumulation; the
+    TANGENTS model.vert:54-67 reads). Returns (V, 4): the xyz tangent and
+    the bitangent's handedness w."""
+    V = len(verts)
+    tan = np.zeros((V, 3), np.float32)
+    bit = np.zeros((V, 3), np.float32)
+    f = np.asarray(faces, np.int64)
+    p0, p1, p2 = verts[f[:, 0]], verts[f[:, 1]], verts[f[:, 2]]
+    t0, t1, t2 = uvs[f[:, 0]], uvs[f[:, 1]], uvs[f[:, 2]]
+    e1, e2 = p1 - p0, p2 - p0
+    d1, d2 = t1 - t0, t2 - t0
+    det = d1[:, 0] * d2[:, 1] - d2[:, 0] * d1[:, 1]
+    r = np.where(np.abs(det) < 1e-12, 0.0, 1.0 / np.where(det == 0, 1, det))
+    td = (e1 * d2[:, 1:2] - e2 * d1[:, 1:2]) * r[:, None]
+    bd = (e2 * d1[:, 0:1] - e1 * d2[:, 0:1]) * r[:, None]
+    for k in range(3):
+        np.add.at(tan, f[:, k], td)
+        np.add.at(bit, f[:, k], bd)
+    n = np.asarray(normals, np.float32)
+    t = tan - n * np.sum(n * tan, -1, keepdims=True)
+    ln = np.linalg.norm(t, axis=-1, keepdims=True)
+    t = np.where(ln > 1e-8, t / np.maximum(ln, 1e-8),
+                 np.array([1.0, 0.0, 0.0], np.float32))
+    w = np.where(np.sum(np.cross(n, t) * bit, -1) < 0, -1.0, 1.0)
+    return np.concatenate([t, w[:, None]], -1).astype(np.float32)
 
 
 def default_edge_ids(entity_active, body_is_char,
@@ -329,9 +366,13 @@ def assemble_cluster_records_batch(rt: RenderTables, entity_mx,
     valid-first compaction to ``cap // CLUSTER`` clusters, and the
     world+clip transform of the kept clusters' rest-pose corners. Returns
     a batched SceneGeometry carrying ``comp`` (B, 21, T), ``comp_valid``,
-    ``comp_ent`` and the world-space dynamic shadow corner stream."""
-    if char_skin is not None or joint_mats is not None:
-        raise NotImplementedError("skinned characters (char_skin)")
+    ``comp_ent`` and the world-space dynamic shadow corner stream.
+
+    char_skin (CharSkin) + joint_mats (B, C, J, 4, 4): skinned characters.
+    The chars' rigid clusters are masked off (``char_skin.cl_skinned``,
+    built with the CharSkin), an LBS-deformed per-env range of C·Tp
+    records is concatenated onto the compacted stream, and the chars' rows
+    of the shadow corner stream are replaced by skinned corners."""
     if rt.cl_rest is None or not rt.flat_eligible:
         raise ValueError("cluster records need cl_rest tables and "
                          "flat-eligible materials (kernel_attrs mode)")
@@ -345,6 +386,9 @@ def assemble_cluster_records_batch(rt: RenderTables, entity_mx,
                                  == torch.arange(L, device=dev))
     idx = (rt.cl_entity * L + rt.cl_lod).long()
     cv = ok_el.reshape(B, E * L)[:, idx]                     # (B, Tc)
+    if char_skin is not None:
+        # the skinned range below replaces the chars' rigid clusters
+        cv = cv & ~char_skin.cl_skinned[None, :]
     Tc = idx.shape[0]
     capc = min(cap // CLUSTER, Tc)
     packed = entity_mx[..., :3, :].reshape(B, E, 12)
@@ -396,6 +440,16 @@ def assemble_cluster_records_batch(rt: RenderTables, entity_mx,
     swc = _xform_rows(gs, rt.shadow_corner_rest)
     sfv = entity_visible[:, rt.shadow_face_entity.long()]
 
+    if char_skin is not None:
+        from .charskin import apply_shadow_skin, skin_records
+
+        comp_s, valid_s, ent_s, sh_world = skin_records(
+            char_skin, joint_mats, entity_mx, views, proj, entity_visible)
+        comp = torch.cat([comp, comp_s], dim=-1)
+        comp_valid = torch.cat([comp_valid, valid_s], dim=-1)
+        comp_ent = torch.cat([comp_ent, ent_s], dim=-1)
+        swc = apply_shadow_skin(swc, char_skin, sh_world)
+
     z3 = torch.zeros((0, 3), device=dev)
     return SceneGeometry(
         verts=z3, normals=z3, faces=torch.zeros((0, 3), dtype=torch.int32,
@@ -407,6 +461,55 @@ def assemble_cluster_records_batch(rt: RenderTables, entity_mx,
         shadow_faces=rt.shadow_faces, shadow_face_valid=sfv,
         shadow_corner_verts=swc,
     )
+
+
+def assemble_scene_geometry_batch(rt: RenderTables, entity_mx,
+                                  entity_visible, cam_planes, cam_pos,
+                                  skip_culling=None, char_skin=None,
+                                  joint_mats=None,
+                                  lod_scale: float = 1.0) -> SceneGeometry:
+    """Member-granularity batched assembly (the per-pixel gather path):
+    B envs with their own entity transforms, visibility and cameras over
+    the one shared instance table.
+
+    Per env: world vertices (B, Vi, 3), face validity (B, Ti) from entity
+    cull + LOD, shadow-caster validity (B, Ts) from visibility alone, and
+    the entity rotations (B, E, 3, 3); every attribute table stays shared
+    and model-local (the model pass rotates normals per pixel by the
+    face's entity). char_skin + joint_mats (B, C, J, 4, 4): the chars'
+    vertex blocks are replaced by LBS-deformed world positions; their
+    shading normals stay rest-pose on this path, as in the JAX package."""
+    B, E = entity_mx.shape[:2]
+    L = LOD_MAX
+    packed = entity_mx[..., :3, :].reshape(B, E, 12)
+    wverts = _xform_rows(packed[:, rt.vert_entity.long()], rt.verts)
+    if char_skin is not None:
+        from .charskin import skin_vertex_rows
+
+        w_skin, _ = skin_vertex_rows(char_skin, joint_mats, entity_mx)
+        V = char_skin.n_verts
+        for c, r0 in enumerate(char_skin.vert_row0):
+            wverts[:, r0:r0 + V] = w_skin[:, c]
+
+    ent_ok, lod, rot = _entity_cull_lod(rt, entity_mx, entity_visible,
+                                        cam_planes, cam_pos, skip_culling,
+                                        lod_scale)
+    ok_el = ent_ok[..., None] & (lod[..., None]
+                                 == torch.arange(L, device=lod.device))
+    fv = ok_el.reshape(B, E * L)[:, (rt.face_entity * L + rt.face_lod).long()]
+    sfv = entity_visible[:, rt.shadow_face_entity.long()]
+    mat = rt.any_material
+    return SceneGeometry(
+        verts=wverts, normals=rt.normals, faces=rt.faces, face_valid=fv,
+        base_color=rt.base_color, rough_metal=rt.rough_metal,
+        emission=rt.emission,
+        uv=rt.uv if mat else None, tangent=rt.tangent if mat else None,
+        tex_id=rt.tex_id if mat else None,
+        local_pos=rt.verts if mat else None,
+        mat_fbm=rt.mat_fbm if mat else None,
+        edge_id=rt.edge_id, face_entity=rt.face_entity, ent_rot=rot,
+        ent_flat=rt.ent_flat if rt.flat_eligible else None,
+        shadow_faces=rt.shadow_faces, shadow_face_valid=sfv)
 
 
 def static_shadow_geometry(rt: RenderTables, entity_mx0, light_dir,

@@ -2,10 +2,9 @@
 clap_tpu/render/shade.py; reference shaders lighting.glsl, shadow.glsl,
 tonemap.glsl, oetf.glsl).
 
-Elementwise image math over batched (B, H, W[, C]) tensors. The per-pixel
-attribute-gather path of the JAX package (interpolate_attrs, material
-fBm, PCF) is not ported: the slice shades from kernel-interpolated
-normals and per-entity flat materials.
+Elementwise image math over batched (B, H, W[, C]) tensors, and the
+G-buffer attribute interpolation of the per-pixel gather path (one gather
+of a packed per-triangle record per pixel). PCF shadows are not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +14,78 @@ from typing import NamedTuple
 import torch
 
 from .lights import LIGHT_TILE, Lights
+from .raster import GBuffer
+
+
+# ---------------------------------------------------------------------------
+# G-buffer attribute interpolation
+# ---------------------------------------------------------------------------
+
+def pack_tri_attrs(faces, vattrs):
+    """(B, T, 3A) per-triangle records, the three corners' attributes side
+    by side, from faces (T, 3) shared or (B, T, 3) per env and vattrs
+    (V, A)."""
+    return vattrs[faces.long()].reshape(*faces.shape[:-1],
+                                        3 * vattrs.shape[-1])
+
+
+def interpolate_attrs(gb: GBuffer, faces, vattrs, csrc=None,
+                      face_attrs=None, table_dtype=None):
+    """Per-pixel interpolated vertex attributes of a (B, H, W) G-buffer.
+
+    faces (T, 3) shared or (B, T, 3) per env (after compact_faces); vattrs
+    (V, A). Returns (B, H, W, A), zeros on background pixels.
+
+    csrc (near-plane clip, clip_near_records): the G-buffer holds
+    sub-triangle ids, already folded back to the original triangle's
+    barycentrics (the fold lives in the records), so only the id maps
+    back: orig = sub mod T, with T the (per env compacted) face count.
+
+    face_attrs (T, F) or (B, T, F): flat per-face columns that ride the
+    same per-pixel gather; then returns (attrs, flat (B, H, W, F)), flat
+    copied from the record, -1 on background pixels.
+
+    table_dtype (e.g. torch.bfloat16): storage dtype of the per-triangle
+    table; interpolation runs in vattrs' dtype."""
+    B = gb.tri_id.shape[0]
+    A = vattrs.shape[-1]
+    T = faces.shape[-2]
+    tri = pack_tri_attrs(faces, vattrs).expand(B, T, 3 * A)
+    if face_attrs is not None:
+        tri = torch.cat([tri, face_attrs.to(tri.dtype).expand(
+            B, T, face_attrs.shape[-1])], dim=-1)
+    if table_dtype is not None:
+        tri = tri.to(table_dtype)
+    tid = torch.clamp(gb.tri_id, min=0).long()
+    if csrc is not None:
+        tid = torch.remainder(tid, T)
+    rec = torch.gather(tri, 1, tid.reshape(B, -1, 1).expand(
+        -1, -1, tri.shape[-1])).reshape(*gb.tri_id.shape, tri.shape[-1])
+    if table_dtype is not None:
+        rec = rec.to(vattrs.dtype)
+    b0 = gb.bary[..., 0:1]
+    b1 = gb.bary[..., 1:2]
+    b2 = 1.0 - b0 - b1
+    out = rec[..., :A] * b0 + rec[..., A:2 * A] * b1 \
+        + rec[..., 2 * A:3 * A] * b2
+    hit = (gb.tri_id >= 0)[..., None]
+    out = torch.where(hit, out, 0.0)
+    if face_attrs is None:
+        return out
+    return out, torch.where(hit, rec[..., 3 * A:], -1.0)
+
+
+def face_attr(gb: GBuffer, per_face):
+    """Per-pixel flat (per-face) attribute gather, e.g. a material id:
+    per_face (B, T, ...) (expand a shared table); zeros on background
+    pixels."""
+    B = gb.tri_id.shape[0]
+    tid = torch.clamp(gb.tri_id, min=0).reshape(B, -1).long()
+    out = per_face[torch.arange(B, device=tid.device)[:, None], tid]
+    out = out.reshape(*gb.tri_id.shape, *per_face.shape[2:])
+    hit = (gb.tri_id >= 0).reshape(gb.tri_id.shape
+                                   + (1,) * (out.dim() - gb.tri_id.dim()))
+    return torch.where(hit, out, torch.zeros_like(out))
 
 
 class Material(NamedTuple):
@@ -116,6 +187,54 @@ def shade_pixels(world_pos, normal, view_pos, mat: Material, lights: Lights,
         + shadow_tint * (1 - shadow_factor[..., None])
     total_d = total_d + ambient * mat.base_color * amb_tint
     return total_d + total_s
+
+
+# ---------------------------------------------------------------------------
+# material noise (lighting.glsl:20-50): procedural roughness / metallic
+# ---------------------------------------------------------------------------
+
+def _hash3(p):
+    """fract(sin(p · (127.1, 311.7, 74.7)) · 43758.5453). The multiply
+    turns one ulp of sin into ~3e-3, so two implementations agree only to
+    that (and differ by ~1 where fract wraps)."""
+    k = torch.tensor([127.1, 311.7, 74.7], dtype=p.dtype, device=p.device)
+    q = torch.sin(torch.sum(p * k, -1)) * 43758.5453
+    return q - torch.floor(q)
+
+
+def value_noise3(p):
+    """Cheap 3-D value noise (the material fBm's octave)."""
+    i = torch.floor(p)
+    f = p - i
+    u = f * f * (3.0 - 2.0 * f)
+
+    def corner(dx, dy, dz):
+        return _hash3(i + torch.tensor([dx, dy, dz], dtype=p.dtype,
+                                       device=p.device))
+
+    ux, uy, uz = u[..., 0], u[..., 1], u[..., 2]
+    x00 = corner(0, 0, 0) * (1 - ux) + corner(1, 0, 0) * ux
+    x10 = corner(0, 1, 0) * (1 - ux) + corner(1, 1, 0) * ux
+    x01 = corner(0, 0, 1) * (1 - ux) + corner(1, 0, 1) * ux
+    x11 = corner(0, 1, 1) * (1 - ux) + corner(1, 1, 1) * ux
+    y0 = x00 * (1 - uy) + x10 * uy
+    y1 = x01 * (1 - uy) + x11 * uy
+    return y0 * (1 - uz) + y1 * uz
+
+
+def material_fbm(local_pos, amp, octaves: int, scale):
+    """fBm of the local-space position (lighting.glsl:20-50), clipped to
+    [0, 1]: the caller lerps the material's floor → ceil by it. amp
+    (...,) and scale (..., 1) may vary per pixel."""
+    total = torch.zeros(local_pos.shape[:-1], dtype=local_pos.dtype,
+                        device=local_pos.device)
+    freq = 1.0
+    a = amp
+    for _ in range(octaves):
+        total = total + a * value_noise3(local_pos * (scale * freq))
+        freq *= 2.0
+        a = a * 0.5
+    return torch.clamp(total, 0.0, 1.0)
 
 
 def select_cascade(view_depth, cascade_dists):

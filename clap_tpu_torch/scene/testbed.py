@@ -4,7 +4,9 @@ clap_tpu/scene/testbed.py; the ldjam56 "onehandclap" analogue).
 The scene is built on the host in numpy — procedural terrain
 (terrain.c:418-574), kinematic character capsules, dynamic spheres and
 instantiator-placed trees — and then moved to ``device``. The numbers are
-the JAX package's bit for bit.
+the JAX package's bit for bit, as are the render models (``testbed_models``:
+rigid or skinnable characters, untextured or textured) and the testbed's
+procedural textures.
 """
 from __future__ import annotations
 
@@ -194,30 +196,91 @@ def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
     return Testbed(cfg=cfg, state0=st, terrain=t, chunks=chunks)
 
 
+def char_column_mesh(width: float = 0.6, height: float = 2.0,
+                     rings: int = 13, segments: int = 10):
+    """Skinnable character mesh: a ring column along +y (feet at 0, head at
+    ``height``) with a waist/shoulder radius profile, capped by two fans.
+    Returns (verts, normals, uvs, faces); uv is a cylindrical unwrap (u =
+    angle/2π, v = y/height) whose seam is left as it falls."""
+    ys = np.linspace(0.0, height, rings).astype(np.float32)
+    tn = ys / height
+    # radius profile: ankles → hips bulge → waist → shoulders → head
+    prof = 0.22 + 0.16 * np.exp(-((tn - 0.35) / 0.25) ** 2) \
+        + 0.10 * np.exp(-((tn - 0.8) / 0.18) ** 2) \
+        - 0.06 * tn
+    prof = (prof * (width / 0.6)).astype(np.float32)
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    ca, sa = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    verts, normals, uvs = [], [], []
+    for yi, r in zip(ys, prof):
+        for k, (c, s) in enumerate(zip(ca, sa)):
+            verts.append((r * c, yi, r * s))
+            normals.append((c, 0.0, s))
+            uvs.append((k / segments, yi / height))
+    verts = np.asarray(verts, np.float32)
+    normals = np.asarray(normals, np.float32)
+    faces = []
+    for k in range(rings - 1):
+        for i in range(segments):
+            j = (i + 1) % segments
+            a, b = k * segments + i, k * segments + j
+            c, d = a + segments, b + segments
+            faces.extend([[a, c, b], [b, c, d]])
+    base = len(verts)
+    verts = np.concatenate([verts, np.array(
+        [[0, 0, 0], [0, height, 0]], np.float32)])
+    normals = np.concatenate([normals, np.array(
+        [[0, -1, 0], [0, 1, 0]], np.float32)])
+    top0 = (rings - 1) * segments
+    for i in range(segments):
+        j = (i + 1) % segments
+        faces.append([base, i, j])                       # bottom
+        faces.append([base + 1, top0 + j, top0 + i])     # top
+    uvs = np.concatenate([np.asarray(uvs, np.float32),
+                          np.array([[0.5, 0.0], [0.5, 1.0]], np.float32)])
+    return verts, normals, uvs, np.asarray(faces, np.int32)
+
+
+def build_testbed_char_skin(tb: Testbed, models, rt, device=None):
+    """CharSkin for the testbed roster: smooth 1-D weights to the demo
+    rig's 3-joint chain (joints at y = 0, 0.8, 1.6 — build_demo_rig),
+    shared by every char entity (slots 1..n_chars)."""
+    from ..render.charskin import build_char_skin, linear_joint_weights
+
+    n_chars = tb.cfg.char_params.body.shape[0]
+    w, ji = linear_joint_weights(models[1].verts, np.array([0.0, 0.8, 1.6]))
+    return build_char_skin(rt, models[1], w, ji, 3,
+                           np.arange(1, 1 + n_chars), device=device)
+
+
 def testbed_models(tb: Testbed, with_lods: bool = True,
                    terrain_color=(0.35, 0.5, 0.3),
                    skinned_chars: bool = False, textured: bool = False):
     """ModelData list matching the testbed's model-id layout: 0 terrain
-    (empty when chunked), 1 character (rigid cube proxy), 2 sphere, 3
-    tree, then one model per terrain chunk with LOD chains."""
+    (empty when chunked), 1 character, 2 sphere, 3 tree, then one model per
+    terrain chunk with LOD chains.
+
+    skinned_chars: the character is the ring column (char_column_mesh) in
+    place of the rigid cube proxy; pair with build_testbed_char_skin.
+    textured: uv and texture layers on the character (layer 0) and the
+    tree (layer 1), for testbed_textures — the tables then carry
+    materials, and the frame takes the per-pixel gather path."""
     from ..render.scenerender import ModelData, model_from_mesh
     from .primitives import cube
 
-    if skinned_chars:
-        raise NotImplementedError("skinned characters (charskin)")
-    if textured:
-        raise NotImplementedError("textured models (_surface_gather)")
     t = tb.terrain
-    cv, cn, _cu, cf = cube(1.0)
+    cv, cn, cu, cf = cube(1.0)
     cv = np.asarray(cv, np.float32)
     cn = np.asarray(cn, np.float32)
+    cu = np.asarray(cu, np.float32)
     cf = np.asarray(cf)
 
-    def cube_model(w, h, color):
+    def cube_model(w, h, color, tex_id: int = -1):
         v = cv * np.array([w, h, w], np.float32) \
             + np.array([0, h / 2, 0], np.float32)
         return model_from_mesh(v, cn, cf, base_color=color,
-                               with_lods=with_lods)
+                               with_lods=with_lods,
+                               uv=cu if tex_id >= 0 else None, tex_id=tex_id)
 
     if tb.chunks:
         z3 = np.zeros((0, 3), np.float32)
@@ -229,17 +292,41 @@ def testbed_models(tb: Testbed, with_lods: bool = True,
         terrain_model = model_from_mesh(
             t.vx, t.norm, t.idx.reshape(-1, 3),
             base_color=terrain_color, with_lods=False)
+    if skinned_chars:
+        sv, sn, suv, sf = char_column_mesh(0.6, 2.0)
+        char_model = model_from_mesh(
+            sv, sn, sf, base_color=(0.8, 0.5, 0.4), with_lods=with_lods,
+            uv=suv if textured else None, tex_id=0 if textured else -1)
+    else:
+        char_model = cube_model(0.6, 2.0, (0.8, 0.5, 0.4),
+                                tex_id=0 if textured else -1)
     models = [
         terrain_model,
-        cube_model(0.6, 2.0, (0.8, 0.5, 0.4)),
+        char_model,
         cube_model(0.8, 0.8, (0.6, 0.6, 0.7)),
-        cube_model(0.8, 3.0, (0.4, 0.3, 0.2)),
+        cube_model(0.8, 3.0, (0.4, 0.3, 0.2), tex_id=1 if textured else -1),
     ]
     for cvv, cnn, cff in (tb.chunks or []):
         models.append(model_from_mesh(cvv, cnn, cff,
                                       base_color=terrain_color,
                                       with_lods=with_lods))
     return models
+
+
+def testbed_textures(device=None):
+    """Procedural TextureSets for testbed_models(textured=True) on
+    ``device``: layer 0 a checker (characters), layer 1 bark stripes
+    (trees)."""
+    from ..render.pipeline import TextureSets
+
+    checker = np.zeros((32, 32, 3), np.float32) + 0.55
+    checker[::2, ::2] = (0.95, 0.55, 0.35)
+    checker[1::2, 1::2] = (0.95, 0.55, 0.35)
+    bark = np.zeros((32, 32, 3), np.float32)
+    bark[:] = (0.45, 0.33, 0.2)
+    bark[:, ::4] = (0.3, 0.2, 0.12)
+    return TextureSets(diffuse=torch.as_tensor(
+        np.stack([checker, bark]), device=resolve_device(device)))
 
 
 def replicate_state(st, n_envs: int):

@@ -197,6 +197,63 @@ def test_kernel_rejects_cpu_inputs_mixed_with_cuda(cuda_device):
         R.raster_tile(*args)
 
 
+@pytest.fixture(scope="module")
+def frame_inputs():
+    """K1/K2 inputs of the composed frames at 2 envs × 256² after 3 frames
+    (chip_smoke.py's worlds): the skinned flagship (22-column extras
+    records) and the textured frame (19-column barycentric records, the
+    gather path). Skips without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest "
+                    "tests/test_torch_cuda.py -m cuda --noconftest)")
+    import chip_smoke as CS
+    from clap_tpu_torch.engine.frame import step_and_render
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for textured in (False, True):
+        w = CS.build_slice(dev, n_envs=2, textured=textured)
+        static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                    w["lights"].direction[0],
+                                    shadow_size=1024, far=200.0)
+        renderer = CS.make_renderer(w, static)
+        gs = w["gs"]
+        for _ in range(3):
+            gs, _img = step_and_render(w["gw"], renderer, gs, w["ins"])
+        out["textured" if textured else "skinned_flagship"] = \
+            CS.frame_records(renderer, gs.engine, gs.joint_mats)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,ncol", [("skinned_flagship", 22),
+                                       ("textured", 19)])
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_kernel_bit_exact_on_frame_inputs_on_card(frame_inputs, path, ncol,
+                                                  depth_only):
+    """K1 on the main pass's records (extras mode for the skinned
+    flagship, barycentric mode for the textured frame) and K2 on the
+    cascade atlas, each bit-exact against its plain version."""
+    _geom, rec, binned, srec, sbin, dims = frame_inputs[path]
+    assert rec.shape[1] == ncol and rec.is_cuda
+    if depth_only:
+        args = R.kernel_inputs(srec, sbin, *dims, depth_only=True)
+        kernel, plain = R.raster_depth, R.raster_depth_ref
+    else:
+        args = R.kernel_inputs(rec, binned, 256, 256)
+        kernel, plain = R.raster_tile, R.raster_tile_ref
+    before = kernel.launches
+    k = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    r = plain(*args)
+    k, r = (k, r) if isinstance(k, tuple) else ((k,), (r,))
+    assert bool(torch.isfinite(r[0]).any())
+    for a, b in zip(k, r):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,steps", CA_SHAPES,
                          ids=lambda v: "x".join(map(str, v))

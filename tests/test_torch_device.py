@@ -17,6 +17,7 @@ from clap_tpu_torch.engine.step import Inputs, inputs_zero
 from clap_tpu_torch.ops.ca2d import CA_TEST, ca2d_seed
 from clap_tpu_torch.render.lights import lights_empty
 from clap_tpu_torch.render.scenerender import build_render_tables
+from clap_tpu_torch.render.texture import upload_texture
 from clap_tpu_torch.scene import testbed as ttb
 from clap_tpu_torch.scene.voxel import cave_scene
 from test_torch_common import ENTRY_SCENE
@@ -38,6 +39,15 @@ def _one_tensor(out):
             if t is not None:
                 return t
     return None
+
+
+def _char_skin_on_default_device():
+    """build_testbed_char_skin without a device, over CPU tables."""
+    tb = ttb.build_testbed(**ENTRY_SCENE, device="cpu")
+    models = ttb.testbed_models(tb, skinned_chars=True)
+    ent = tb.cfg.entities
+    rt = build_render_tables(models, ent.model_id, ent.active, device="cpu")
+    return ttb.build_testbed_char_skin(tb, models, rt)
 
 
 _KEYS = np.linspace(0.0, 1.0, 4).astype(np.float32)
@@ -63,6 +73,9 @@ BUILDERS = {
     "build_skeleton": lambda: build_skeleton(
         [-1, 0], np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)),
         np.zeros((2, 3), np.float32), _Q[:2], np.ones((2, 3), np.float32)),
+    "testbed_textures": ttb.testbed_textures,
+    "upload_texture": lambda: upload_texture(np.zeros((2, 2, 4), np.uint8)),
+    "build_char_skin": _char_skin_on_default_device,
     "from_numpy": lambda: from_numpy(Inputs(
         motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
         cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -29,7 +30,20 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 45 and bad == "[]"
+    assert int(n) >= 47 and bad == "[]"
+
+
+@pytest.mark.parametrize("module", ["clap_tpu_torch.render.charskin",
+                                    "clap_tpu_torch.render.texture",
+                                    "clap_tpu_torch.engine.frame"])
+def test_skinned_and_textured_modules_import_no_jax(module):
+    """The modules of the skinned and textured frame, each on its own."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'clap_tpu')]; assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where a composed frame's time goes on one CUDA card (torch.profiler):
+
+    python3 tools/torch_profile_frame.py [--frames N] [--top K]
+
+For each of chip_smoke.py's two composed worlds at 64 envs × 256², the
+skinned flagship (phase 5) and the textured frame on the per-pixel gather
+path (phase 8), after a warm-up (the static shadow bake and 2 frames),
+three windows of N calls each: ``step_and_render``, ``game_step`` alone,
+and the render alone (``SceneRenderer`` on the last state). Each window is
+timed unprofiled (host clock around synchronised work), then run again
+under the profiler. Prints per window the wall ms per call, the device busy
+ms per call (the summed time of every kernel, copy and fill on the card),
+its share of the unprofiled wall time, the kernels per call, and the K
+heaviest kernels by device time. Then the card (nvidia-smi name and power
+limit) and, as the last line, a JSON object of every number.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def device_events(prof):
+    """The profiler's device-side rows: (name, count, device µs)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, e.count, us))
+    return rows
+
+
+def window(name, fn, n, top, out):
+    """Time ``fn`` (one call) n times unprofiled, then n times under the
+    profiler; print and record the summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        sync()
+    rows = device_events(prof)
+    busy = sum(us for _, _, us in rows) / n / 1e3
+    launches = sum(c for _, c, _ in rows) / n
+    if busy <= 0.0:
+        raise RuntimeError(f"{name}: the profiler shows no device time")
+    heavy = sorted(rows, key=lambda r: -r[2])[:top]
+    print(f"{name}: wall {wall:.3f} ms/call unprofiled, device busy "
+          f"{busy:.3f} ms/call ({100 * busy / wall:.1f} % of the wall), "
+          f"{launches:.0f} kernels/call", flush=True)
+    for k, c, us in heavy:
+        print(f"  {us / n / 1e3:8.3f} ms/call {c / n:7.0f}x  {k[:90]}",
+              flush=True)
+    out[name] = {"wall_ms": wall, "busy_ms": busy, "kernels": launches,
+                 "top": [[k[:90], c / n, us / n / 1e3] for k, c, us in heavy]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--top", type=int, default=12)
+    a = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile_frame: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as CS
+    from clap_tpu_torch.engine.frame import step_and_render
+    from clap_tpu_torch.engine.game import game_step
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0].strip()
+    print(f"card: {card}", flush=True)
+    res = {"card": card, "frames": a.frames}
+    for tag, textured in (("skinned flagship", False),
+                          ("textured frame", True)):
+        w = CS.build_slice(dev, textured=textured)
+        static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                    w["lights"].direction[0],
+                                    shadow_size=1024, far=200.0)
+        renderer = CS.make_renderer(w, static)
+        box = {"gs": w["gs"]}
+
+        def frame():
+            box["gs"], _ = step_and_render(w["gw"], renderer, box["gs"],
+                                           w["ins"])
+
+        def step():
+            box["gs"] = game_step(w["gw"], box["gs"], w["ins"])
+
+        def render():
+            renderer(box["gs"].engine, box["gs"].joint_mats)
+
+        for _ in range(2):
+            frame()
+        torch.cuda.synchronize()
+        path = "gather" if not renderer.cluster_records else "cluster records"
+        print(f"{tag} ({CS.N_SLICE} envs x {CS.RES}^2, {path}):", flush=True)
+        for name, fn in (("step_and_render", frame), ("game_step", step),
+                         ("render", render)):
+            window(f"{tag} {name}", fn, a.frames, a.top, res)
+        del w, renderer, box, static
+        torch.cuda.empty_cache()
+    print(card, flush=True)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -95,7 +95,7 @@ def main() -> int:
         return 2
     import chip_smoke as CS
     from clap_tpu_torch import cuda_build
-    from clap_tpu_torch.engine.frame import SceneRenderer, step_and_render
+    from clap_tpu_torch.engine.frame import step_and_render
     from clap_tpu_torch.render import raster as R
     from clap_tpu_torch.render.scenerender import bake_static_shadow
 
@@ -176,16 +176,13 @@ def main() -> int:
     static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
                                 w["lights"].direction[0], shadow_size=1024,
                                 far=200.0)
-    renderer = SceneRenderer(w["rt"], w["lights"], w["opts"],
-                             skip_culling=w["ent"].skip_culling,
-                             static_shadow=static,
-                             lod_scale=CS.RES / 720.0)
+    renderer = CS.make_renderer(w, static)
     gs = w["gs"]
     for _ in range(a.frames):
         gs, _img = step_and_render(w["gw"], renderer, gs, w["ins"])
     sync()
     _, rec, binned, srec, sbin, dims = CS.frame_records(
-        renderer, w["opts"], w["lights"], gs.engine)
+        renderer, gs.engine, gs.joint_mats)
     brec, bbin, bdims = CS.bake_records(w["rt"], w["tb"], w["lights"])
     cases = [
         (f"K1 frame {a.frames} {CS.N_SLICE} envs {CS.RES}^2", False,
