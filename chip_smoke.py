@@ -54,8 +54,38 @@ Phases, one or more lines each:
    10 timed frames, checks, launches, K1 bit-exact on frame 11's records
    and timed beside its plain version, input preparation and bound, and
    two envs against the plain CPU path.
+9. full frame — the JAX bench's ``full_frame`` and ``full_frame_dense``
+   (bench.py:168-278) at 1280 × 720: hand-built terrain (and 256 cubes,
+   about 117k triangles, raster_cap 4096) with corner-expanded static
+   streams. 1 warm-up + 5 frames, wall ms and device busy ms
+   (torch.profiler; median and range), peak memory, tiles at capacity,
+   the image checks (finite, std > 0.01, a nudged camera changes the
+   image); K1 and K2 bit-exact on the dense
+   frame's records and cascade atlas, timed beside their plain versions
+   with input preparation and bounds; the default frame against the plain
+   CPU path (PSNR >= 35 dB).
+10. production — ``full_frame_production`` (bench.py:281-420): the dense
+    scene as render tables, kernel_attrs, cluster records (cap 81,920),
+    the terrain baked once into a 2,048² atlas (cold and warm ms): frames
+    as phase 9, clusters at the cap; K1 (extras, 720p) and K2 (the bake)
+    bit-exact, timed, bounded.
+11. batched — ``batched_render`` (bench.py:423-497): 64 views × 256² of
+    one shared terrain, kernel_attrs over member geometry,
+    ``render_frame_batch`` with one shared light atlas (one K2 launch per
+    batch, required): ms per batch, frames/s, img_std, peak memory; K1 on
+    extras records built from faces and normals and K2 on the shared atlas
+    bit-exact, timed, bounded.
+12. shading rate — ``shading_rate`` (bench.py:739-755, 879-884): the
+    skinned flagship at 8 envs at internal_scale 2 against 1 from one
+    state (PSNR printed; the image has the full shape, is finite and is
+    not the full-resolution frame), then 64 envs at internal_scale 2
+    driven as phase 5: ms/frame, env-fps, wall and device ms.
 
-Then a JSON line of the kernels, the nvidia-smi line, and the last line
+Each new path's kernel launches are counted from 0 over its driven run.
+
+Then a JSON line of the kernels (``raster_tile`` / ``raster_depth`` with
+each path's launches and kernel numbers as prefixed fields), the
+nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
 """
@@ -314,6 +344,35 @@ def main() -> int:
     tex = run_textured_phase(dev, smi, require, sync, check_tile,
                              check_depth)
 
+    # ------------------------------------------------------------ 9-12
+    ff = run_full_frame_phase(dev, smi, require, check_tile, check_depth)
+    prod = run_production_phase(dev, smi, require, check_tile, check_depth)
+    bat = run_batched_phase(dev, smi, require, check_tile, check_depth)
+    rate = run_shading_rate_phase(dev, smi, sync, require)
+
+    def fields(prefix, path, k):
+        """A path's launches and its kernel numbers as extra fields."""
+        f = {f"{prefix}_launches": path["launches"][k]}
+        rep = path.get("k1" if k == "raster_tile" else "k2")
+        if rep is not None:
+            f.update({f"{prefix}_max_abs_err": rep["max_abs_err"],
+                      f"{prefix}_ms": rep["ms"],
+                      f"{prefix}_plain_ms": rep["plain_ms"],
+                      f"{prefix}_bound_ms": rep["bound"][0],
+                      f"{prefix}_bound_by": rep["bound"][1]})
+        return f
+
+    def paths(k):
+        f = {}
+        for prefix, path in (("full_frame", ff["full_frame"]),
+                             ("full_frame_dense",
+                              dict(ff["full_frame_dense"], k1=ff["k1"],
+                                   k2=ff["k2"])),
+                             ("production", prod), ("batched", bat),
+                             ("shading_rate", rate)):
+            f.update(fields(prefix, path, k))
+        return f
+
     # library_ms: no single PyTorch call computes a first-wins tile walk
     # or a multi-generation CA
     src = "clap_tpu_torch/csrc/raster.cu"
@@ -327,13 +386,14 @@ def main() -> int:
          "textured_max_abs_err": tex["max_abs_err"],
          "textured_ms": tex["ms"], "textured_plain_ms": tex["plain_ms"],
          "textured_bound_ms": tex["bound"][0],
-         "textured_bound_by": tex["bound"][1]},
+         "textured_bound_by": tex["bound"][1], **paths("raster_tile")},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "clap_tpu/render/raster.py:633",
          "launches": launches["raster_depth"], "max_abs_err": depth_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
-         "textured_launches": tex["launches"]["raster_depth"]},
+         "textured_launches": tex["launches"]["raster_depth"],
+         **paths("raster_depth")},
         {"name": "ca2d_run_fused", "route": "cuda",
          "source": "clap_tpu_torch/csrc/ca2d.cu",
          "replaces": "clap_tpu/ops/ca2d.py:192",
@@ -440,6 +500,250 @@ def build_slice(dev, n_envs=N_SLICE, textured=False):
                 lights=lights, opts=opts, gw=gw, gs=gs, ins=ins)
 
 
+def sun_lights(dev, n=1, color=(1.0, 0.95, 0.9)):
+    """``n`` light slots, slot 0 the one directional light of the JAX
+    bench's scenes (direction (-0.4, -0.8, -0.4), bench.py:237-244)."""
+    import torch
+
+    from clap_tpu_torch.render.lights import lights_empty
+
+    lights = lights_empty(n, device=dev)
+    d = torch.tensor([-0.4, -0.8, -0.4], device=dev)
+    lights.direction[0] = d / torch.linalg.vector_norm(d)
+    lights.color[0] = torch.tensor(color, device=dev)
+    lights.is_dir[0] = True
+    lights.active[0] = True
+    return lights
+
+
+def _cube_field(t, n_cubes):
+    """bench.py's cube "entities" on the heightfield (bench.py:189-208,
+    313-328): per cube its verts, normals and faces, seeded by 9."""
+    import numpy as np
+
+    from clap_tpu_torch.scene.primitives import cube
+
+    cv, cn, _cuv, cf = cube(1.6)
+    rng = np.random.default_rng(9)
+    gx = rng.uniform(-30.0, 30.0, n_cubes)
+    gz = rng.uniform(-30.0, 30.0, n_cubes)
+    hg = t.heights
+    nv = hg.shape[0]
+    out = []
+    for i in range(n_cubes):
+        xi = int((gx[i] + 32.0) / 64.0 * (nv - 1))
+        zi = int((gz[i] + 32.0) / 64.0 * (nv - 1))
+        h = float(hg[min(xi, nv - 1), min(zi, nv - 1)])
+        out.append((cv + np.array([gx[i], h + 0.8, gz[i]], np.float32), cn,
+                    cf))
+    return out
+
+
+def look_at(eyes, target, dev):
+    """View matrices (B, 4, 4) of eyes (B, 3) looking at ``target``."""
+    from clap_tpu_torch import mathx as mx
+
+    return mx.mat4_look_at(eyes, mx.const(target, dev).expand_as(eyes),
+                           mx.const([0.0, 1.0, 0.0], dev).expand_as(eyes))
+
+
+def build_full_frame(dev, nr_v=96, n_cubes=0, raster_cap=0, width=1280,
+                     height=720):
+    """The JAX bench's ``full_frame`` scene (bench.py:168-244): terrain
+    (seed 3, 64 m, ``nr_v``² verts) and ``n_cubes`` cubes as hand-built
+    member geometry of one env, faces in Morton order, with the
+    corner-expanded static streams (``corner_verts`` corner-major,
+    ``shadow_corner_verts`` in record order); 512² cascades, film grain
+    off, ``raster_cap``; the camera at (0, 18, 28) looking at (0, 2, 0).
+    Returns a dict: geom, opts, eye, view, proj, lights, host (vx, normals,
+    faces as numpy)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch import mathx as mx
+    from clap_tpu_torch.render.pipeline import RenderOptions, SceneGeometry
+    from clap_tpu_torch.render.raster import (cluster_faces,
+                                              expand_corners_major,
+                                              expand_corners_record)
+    from clap_tpu_torch.device import resolve_device
+    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
+
+    dev = resolve_device(dev)
+    t = terrain_init_square_landscape(3, -32.0, 0.0, -32.0, 64.0, nr_v)
+    vx, nrm, idx = t.vx, t.norm, t.idx.reshape(-1, 3)
+    if n_cubes:
+        vs, ns, fs = [vx], [nrm], [idx]
+        base = vx.shape[0]
+        for cv, cn, cf in _cube_field(t, n_cubes):
+            vs.append(cv)
+            ns.append(cn)
+            fs.append(cf + base)
+            base += cv.shape[0]
+        vx = np.concatenate(vs).astype(np.float32)
+        nrm = np.concatenate(ns).astype(np.float32)
+        idx = np.concatenate(fs).astype(np.int32)
+    f_np = np.asarray(cluster_faces(vx, idx)[0])
+    V, T = vx.shape[0], f_np.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    geom = SceneGeometry(
+        verts=torch.as_tensor(vx, device=dev)[None],
+        normals=torch.as_tensor(nrm, device=dev),
+        faces=torch.as_tensor(f_np, device=dev),
+        face_valid=torch.ones((1, T), dtype=torch.bool, device=dev),
+        base_color=torch.full((V, 3), 0.45, **f32),
+        rough_metal=torch.tensor([[0.8, 0.0]], **f32).repeat(V, 1),
+        emission=torch.zeros((V, 3), **f32),
+        corner_verts=expand_corners_major(vx, f_np, dev)[None],
+        shadow_corner_verts=expand_corners_record(vx, f_np, dev)[None])
+    opts = RenderOptions(width=width, height=height, shadow_size=512,
+                         film_grain=0.0, raster_cap=raster_cap)
+    eye = torch.tensor([[0.0, 18.0, 28.0]], device=dev)
+    return dict(geom=geom, opts=opts, eye=eye,
+                view=look_at(eye, [0.0, 2.0, 0.0], dev),
+                proj=mx.mat4_perspective(math.pi / 3, width / height, 0.1,
+                                         200.0, device=dev),
+                lights=sun_lights(dev, 2), host=(vx, nrm, f_np))
+
+
+def build_production(dev, width=1280, height=720, nr_v=240, n_cubes=256,
+                     bake_size=2048, cap=10240 * 8):
+    """The JAX bench's ``full_frame_production`` scene (bench.py:281-366):
+    the dense scene as render tables (static terrain entity 0, dynamic
+    cube-field entity 1), kernel_attrs where eligible, raster_cap 4096,
+    cluster records with ``cap`` records, and the terrain's static shadow
+    baked at ``bake_size``². Returns a dict: rt, lights, opts, cap, mxs
+    (1, 2, 4, 4), eye (1, 3), proj, mx0, bake (s), static_shadow."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch import mathx as mx
+    from clap_tpu_torch.render.pipeline import RenderOptions
+    from clap_tpu_torch.render.scenerender import (bake_static_shadow,
+                                                   build_render_tables,
+                                                   kernel_attrs_ok,
+                                                   model_from_mesh)
+    from clap_tpu_torch.device import resolve_device
+    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
+
+    dev = resolve_device(dev)
+    t = terrain_init_square_landscape(3, -32.0, 0.0, -32.0, 64.0, nr_v)
+    vs, ns, fs = [], [], []
+    base = 0
+    for cv, cn, cf in _cube_field(t, n_cubes):
+        vs.append(cv)
+        ns.append(cn)
+        fs.append(cf + base)
+        base += cv.shape[0]
+    models = [
+        model_from_mesh(t.vx, t.norm, t.idx.reshape(-1, 3),
+                        base_color=(0.45, 0.45, 0.45), with_lods=False),
+        model_from_mesh(np.concatenate(vs), np.concatenate(ns),
+                        np.concatenate(fs), base_color=(0.6, 0.5, 0.4),
+                        with_lods=False)]
+    rt = build_render_tables(models, np.array([0, 1]), np.ones(2, bool),
+                             entity_shadow_static=np.array([True, False]),
+                             device=dev)
+    lights = sun_lights(dev)
+    mx0 = torch.eye(4, device=dev).repeat(2, 1, 1)
+    t0 = time.perf_counter()
+    static = bake_static_shadow(rt, mx0, lights.direction[0],
+                                shadow_size=bake_size)
+    if static[0].is_cuda:
+        torch.cuda.synchronize()
+    bake = time.perf_counter() - t0
+    opts = RenderOptions(width=width, height=height, shadow_size=512,
+                         film_grain=0.0, raster_cap=4096,
+                         kernel_attrs=kernel_attrs_ok(rt))
+    return dict(rt=rt, lights=lights, opts=opts, cap=cap,
+                mxs=torch.eye(4, device=dev).repeat(1, 2, 1, 1),
+                eye=torch.tensor([[0.0, 18.0, 28.0]], device=dev),
+                proj=mx.mat4_perspective(math.pi / 3, width / height, 0.1,
+                                         200.0, device=dev),
+                mx0=mx0, bake=bake, static_shadow=static)
+
+
+def production_geometry(w, eyes):
+    """bench.py:372-384: the views of ``eyes`` (B, 3) and the cluster
+    records of the production tables: (geom, views)."""
+    import torch
+
+    from clap_tpu_torch.render.scenerender import \
+        assemble_cluster_records_batch
+    from clap_tpu_torch.render.view import make_subview
+
+    views = look_at(eyes, [0.0, 2.0, 0.0], eyes.device)
+    planes = make_subview(views, w["proj"]).planes
+    geom = assemble_cluster_records_batch(
+        w["rt"], w["mxs"].expand(eyes.shape[0], -1, -1, -1),
+        torch.ones((eyes.shape[0], 2), dtype=torch.bool, device=eyes.device),
+        planes, eyes, views, w["proj"], cap=w["cap"])
+    return geom, views
+
+
+def production_frame(w, eyes):
+    """One ``full_frame_production`` frame of ``eyes`` (B, 3)."""
+    from clap_tpu_torch.render.pipeline import render_frame_dynamic_batch
+
+    geom, views = production_geometry(w, eyes)
+    return render_frame_dynamic_batch(w["opts"], geom, views, w["proj"],
+                                      w["lights"], eyes,
+                                      static_shadow=w["static_shadow"])
+
+
+def build_batched(dev, n_envs=64, res=256):
+    """The JAX bench's ``batched_render`` scene (bench.py:423-476): one
+    shared terrain (seed 11, 32 m, 48² verts) as render tables, assembled
+    once from a reference view (member granularity, the terrain skips
+    culling) with its env axis dropped; kernel_attrs where eligible, 256²
+    cascade atlas, SSAO off; ``n_envs`` eyes on a ring of radius 12 at
+    height 9 looking at the origin. Returns a dict: rt, geom, opts,
+    lights, eyes, views, proj."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch import mathx as mx
+    from clap_tpu_torch.render.pipeline import PER_ENV, RenderOptions
+    from clap_tpu_torch.render.scenerender import (
+        assemble_scene_geometry_batch, build_render_tables, kernel_attrs_ok,
+        model_from_mesh)
+    from clap_tpu_torch.render.view import make_subview
+    from clap_tpu_torch.device import resolve_device
+    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
+
+    dev = resolve_device(dev)
+    t = terrain_init_square_landscape(11, -16.0, 0.0, -16.0, 32.0, 48)
+    rt = build_render_tables(
+        [model_from_mesh(t.vx, t.norm, t.idx.reshape(-1, 3),
+                         with_lods=False)], np.array([0]), np.ones(1, bool),
+        device=dev)
+    proj = mx.mat4_perspective(math.pi / 3, 1.0, 0.1, 100.0, device=dev)
+    eye0 = torch.tensor([[12.0, 9.0, 0.0]], device=dev)
+    view0 = look_at(eye0, [0.0, 0.0, 0.0], dev)
+    gb = assemble_scene_geometry_batch(
+        rt, torch.eye(4, device=dev)[None, None],
+        torch.ones((1, 1), dtype=torch.bool, device=dev),
+        make_subview(view0, proj).planes, eye0,
+        skip_culling=torch.tensor([True], device=dev))
+    geom = gb._replace(**{f: getattr(gb, f)[0] for f in PER_ENV
+                          if getattr(gb, f) is not None})
+    ang = torch.arange(n_envs, dtype=torch.float32, device=dev) \
+        * (2 * math.pi / n_envs)
+    eyes = torch.stack([12 * torch.cos(ang), torch.full_like(ang, 9.0),
+                        12 * torch.sin(ang)], -1)
+    opts = RenderOptions(width=res, height=res, shadow_size=256,
+                         film_grain=0.0, ssao=False,
+                         kernel_attrs=kernel_attrs_ok(rt))
+    return dict(rt=rt, geom=geom, opts=opts,
+                lights=sun_lights(dev, color=(1.0, 1.0, 1.0)), eyes=eyes,
+                views=look_at(eyes, [0.0, 0.0, 0.0], dev), proj=proj)
+
+
 def make_renderer(w, static, to=None):
     """The SceneRenderer of a ``build_slice`` world with the baked static
     shadow; ``to="cpu"`` makes a copy of it on the CPU."""
@@ -467,15 +771,13 @@ def drive_frames(w, sync, require, frames=10):
     import torch
 
     from clap_tpu_torch.engine.frame import step_and_render
-    from clap_tpu_torch.render import raster as R
     from clap_tpu_torch.render.scenerender import bake_static_shadow
 
     gw, gs, ins = w["gw"], w["gs"], w["ins"]
     n = gs.engine.frame.shape[0]
     frame0 = gs.engine.frame.clone()
     torch.cuda.reset_peak_memory_stats()
-    R.raster_tile.launches = 0
-    R.raster_depth.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
                                 w["lights"].direction[0], shadow_size=1024,
@@ -490,8 +792,7 @@ def drive_frames(w, sync, require, frames=10):
         gs, imgs = step_and_render(gw, renderer, gs, ins)
     sync()
     dt = (time.perf_counter() - t0) / frames
-    launches = {"raster_tile": R.raster_tile.launches,
-                "raster_depth": R.raster_depth.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     st = gs.engine
     require(bool(((st.frame - frame0) == frames + 1).all()),
@@ -619,6 +920,391 @@ def run_textured_phase(dev, smi, require, sync, check_tile, check_depth):
     out = dict(launches=d["launches"], max_abs_err=err, ms=ms,
                plain_ms=plain, bound=bound)
     del d, renderer, gs, geom, rec, binned, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def driven_run(reps, unit="frames"):
+    """What a phase's driven run holds: the warm-up and ``frame_times``'s
+    calls."""
+    return f"1 warm-up, {reps} wall-timed and {reps} profiled {unit}"
+
+
+def device_busy_ms(fn):
+    """The card's busy ms in one call of ``fn()``: the summed time of every
+    kernel, copy and fill under torch.profiler. A frame queues more
+    kernels than the launch queue holds, so CUDA events around it measure
+    the host's pace as well; the profiler's sum does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    if us <= 0:
+        raise RuntimeError("the profiler shows no device time")
+    return us / 1e3
+
+
+def frame_times(fn, reps):
+    """``reps`` wall times (host clock around one call that ends in a
+    synchronize) and ``reps`` device busy times (``device_busy_ms``) of
+    ``fn()``, in ms: (wall list, busy list)."""
+    import torch
+
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return wall, [device_busy_ms(fn) for _ in range(reps)]
+
+
+def spread(ms):
+    """``median (range lo-hi)`` of a list of ms."""
+    s = sorted(ms)
+    return f"{s[len(s) // 2]:.2f} ms (range {s[0]:.2f}-{s[-1]:.2f})"
+
+
+def median(ms):
+    return sorted(ms)[len(ms) // 2]
+
+
+def reset_launches():
+    from clap_tpu_torch.render import raster as R
+
+    R.raster_tile.launches = 0
+    R.raster_depth.launches = 0
+
+
+def read_launches():
+    from clap_tpu_torch.render import raster as R
+
+    return {"raster_tile": R.raster_tile.launches,
+            "raster_depth": R.raster_depth.launches}
+
+
+def kernel_report(phase, name, check, rec, binned, dims, depth_only, smi):
+    """One kernel on one path's inputs: bit-exact against its plain version
+    (``check``), timed beside it, its input preparation (kernel_inputs)
+    timed, and its bound from ``walk_bound``. Returns a dict: max_abs_err,
+    ms, plain_ms, prep_ms, bound (ms, by, counts)."""
+    from clap_tpu_torch.render import raster as R
+
+    kernel, plain = (R.raster_depth, R.raster_depth_ref) if depth_only \
+        else (R.raster_tile, R.raster_tile_ref)
+
+    def prep():
+        return R.kernel_inputs(rec, binned, *dims, depth_only=depth_only)
+
+    args = prep()
+    err = check(name, args)[2]
+    ms = time_ms(kernel, args, 20)
+    plain_ms = time_ms(plain, args, 2)
+    prep_ms = time_ms(prep, (), 20)
+    bound = walk_bound(R, plain, args, R.NCOEF_DEPTH if depth_only
+                       else R.NCOEF, 1 if depth_only else 5,
+                       0 if depth_only else 12)
+    k = "K2 raster_depth" if depth_only else "K1 raster_tile"
+    log(f"{phase} kernel timing ({name}): {k} {ms:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms; input preparation (kernel_inputs) "
+        f"{prep_ms:.3f} ms; {bound[0] / ms:.1%} of its bound ({smi})")
+    log_bounds(phase, ((k.split()[0], bound),))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
+                bound=bound)
+
+
+def image_checks(phase, require, img0, img1):
+    """The JAX bench's image checks: finite, std > 0.01, and the nudged
+    camera's frame differs from the first (bench.py:250-257)."""
+    import torch
+
+    std = float(img0.std())
+    depends = bool(((img0 - img1).abs() > 1e-6).any())
+    require(bool(torch.isfinite(img0).all()), f"{phase} image finite")
+    require(std > 0.01, f"{phase} image std > 0.01")
+    require(depends, f"{phase} image depends on the camera")
+    return std, depends
+
+
+def run_full_frame_phase(dev, smi, require, check_tile, check_depth,
+                         reps=5):
+    """Phase 9: the JAX bench's ``full_frame`` (bench.py:168-278) at 1280 ×
+    720, its default scene (nr_v 96, no cubes, raster_cap 0) and the dense
+    one (nr_v 240, 256 cubes, raster_cap 4096), both with corner-expanded
+    static streams: 1 warm-up + ``reps`` frames, wall and device ms, peak
+    memory, binning saturation, the image checks; K1 and K2 bit-exact on
+    the dense frame's records and atlas with times and bounds; the default
+    frame against the plain CPU path."""
+    import torch
+
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.render import raster as R
+    from clap_tpu_torch.render.pipeline import (clip_transform,
+                                                gather_records, render_frame,
+                                                shadow_records)
+    from clap_tpu_torch.render.view import cascade_subviews
+
+    out = {}
+    for name, nr_v, n_cubes, cap in (("full_frame", 96, 0, 0),
+                                     ("full_frame_dense", 240, 256, 4096)):
+        w = build_full_frame(dev, nr_v, n_cubes, cap)
+        geom, opts, proj, lights = w["geom"], w["opts"], w["proj"], \
+            w["lights"]
+
+        def frame(eye, view):
+            return render_frame(opts, geom, view, proj, lights, eye)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        img0 = frame(w["eye"], w["view"])
+        wall, devt = frame_times(lambda: frame(w["eye"], w["view"]), reps)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        require(all(v > 0 for v in launches.values()),
+                f"{name}: every kernel launched on the path: {launches}")
+        eye2 = w["eye"] + torch.tensor([[0.5, 0.0, 0.0]], device=dev)
+        img1 = frame(eye2, look_at(eye2, [0.0, 2.0, 0.0], dev))
+        std, _ = image_checks(f"phase 9 {name}", require, img0, img1)
+        # binning saturation of the face path's records (bench.py:260-267)
+        rec, ok, _, _ = R.clip_near_records(
+            clip_transform(geom.verts, w["view"], proj), geom.faces,
+            opts.width, opts.height, geom.face_valid)
+        bs = R.bin_stats(R.bin_triangles(rec, ok, opts.width, opts.height,
+                                         cap=cap or None))
+        T = geom.faces.shape[0]
+        log(f"phase 9 {name}: {opts.width}x{opts.height}, {T} triangles, "
+            f"{spread(wall)} wall / {spread(devt)} device busy per frame "
+            f"({1e3 / median(wall):.1f} fps), peak memory "
+            f"{peak / 2**30:.2f} GiB, tiles at capacity "
+            f"{bs['tiles_at_cap']}/{bs['n_tiles']} (max {bs['max_per_tile']}"
+            f" of {bs['cap']} records), image std {std:.4f}, input-dependent "
+            f"True; launches in the driven run ({driven_run(reps)}) "
+            f"{launches} ({smi})")
+        out[name] = dict(launches=launches, wall=wall, device=devt,
+                         tris=T, tiles_at_cap=bs["tiles_at_cap"])
+        if name == "full_frame":
+            cpu = tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x,
+                           (geom, w["view"], proj, lights, w["eye"]))
+            ref = render_frame(opts, cpu[0], cpu[1], cpu[2], cpu[3], cpu[4])
+            mse = float(((img0.cpu() - ref) ** 2).mean())
+            p = 10 * math.log10(1.0 / max(mse, 1e-12))
+            log(f"phase 9 {name} end-to-end: the 720p CUDA frame vs the "
+                f"plain CPU path PSNR {p:.1f} dB")
+            require(p >= 35.0, "full_frame 720p PSNR >= 35 dB vs the CPU")
+        else:
+            clip = clip_transform(geom.corner_verts, w["view"], proj)
+            rec, binned = gather_records(opts, geom, clip)[:2]
+            out["k1"] = kernel_report(
+                "phase 9", f"{name} 720p records from the corner stream "
+                f"({rec.shape[-1]} records)", check_tile, rec, binned,
+                (opts.width, opts.height), False, smi)
+            casc, _ = cascade_subviews(w["view"], proj,
+                                       lights.direction[0], 0.1, 200.0)
+            srec, sbin, dims = shadow_records(opts, geom, casc.view,
+                                              casc.proj)
+            out["k2"] = kernel_report(
+                "phase 9", f"{name} cascade atlas {dims[1]}x{dims[0]}",
+                check_depth, srec, sbin, dims, True, smi)
+        del w, geom, img0, img1
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_production_phase(dev, smi, require, check_tile, check_depth,
+                         reps=5):
+    """Phase 10: the JAX bench's ``full_frame_production``
+    (bench.py:281-420): the dense scene as render tables, kernel_attrs,
+    cluster records with cap 81,920, the terrain baked once into a 2,048²
+    atlas, 1280 × 720: the bake cold and warm, 1 warm-up + ``reps``
+    frames, the image checks, clusters at the cap; K1 (extras, 720p) and
+    K2 (the 2,048² bake) bit-exact with times and bounds."""
+    import torch
+
+    from clap_tpu_torch.render import raster as R
+    from clap_tpu_torch.render.pipeline import (RenderOptions,
+                                                shadow_records,
+                                                surface_records)
+    from clap_tpu_torch.render.scenerender import (bake_static_shadow,
+                                                   static_shadow_geometry)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    w = build_production(dev)
+    require(w["opts"].kernel_attrs, "production tables are kernel_attrs "
+            "eligible")
+    bake_cold, size = w["bake"], w["static_shadow"][0].shape[-2]
+    opts = w["opts"]
+    t0 = time.perf_counter()
+    bake_static_shadow(w["rt"], w["mx0"], w["lights"].direction[0],
+                       shadow_size=size)
+    torch.cuda.synchronize()
+    bake_warm = time.perf_counter() - t0
+    img0 = production_frame(w, w["eye"])
+    wall, devt = frame_times(lambda: production_frame(w, w["eye"]), reps)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(all(v > 0 for v in launches.values()),
+            f"production: every kernel launched on the path: {launches}")
+    img1 = production_frame(w, w["eye"] + torch.tensor([[0.5, 0.0, 0.0]],
+                                                       device=dev))
+    std, _ = image_checks("phase 10 production", require, img0, img1)
+    geom, _views = production_geometry(w, w["eye"])
+    nval = int(geom.comp_valid.sum()) // R.CLUSTER
+    at_cap = nval >= w["cap"] // R.CLUSTER
+    rt = w["rt"]
+    log(f"phase 10 full_frame_production: {opts.width}x{opts.height}, "
+        f"{rt.faces.shape[0]} triangles, kernel_attrs True, cluster records "
+        f"(cap {w['cap']}): {nval} valid clusters, clusters_at_cap "
+        f"{at_cap}; static bake {size}^2 of "
+        f"{rt.static_shadow_faces.shape[0]} triangles cold "
+        f"{bake_cold * 1e3:.1f} ms, warm {bake_warm * 1e3:.1f} ms; dynamic "
+        f"shadow triangles {rt.shadow_faces.shape[0]}; {spread(wall)} wall "
+        f"/ {spread(devt)} device busy per frame "
+        f"({1e3 / median(wall):.1f} fps), "
+        f"peak memory {peak / 2**30:.2f} GiB, image std {std:.4f}, "
+        f"input-dependent True; launches in the driven run (the bake twice,"
+        f" {driven_run(reps)}) {launches} ({smi})")
+    rec, binned, _ = surface_records(opts, geom)
+    k1 = kernel_report("phase 10", f"production {opts.height}p extras "
+                       f"records ({rec.shape[-1]} records)", check_tile, rec,
+                       binned, (opts.width, opts.height), False, smi)
+    g, sv, _ = static_shadow_geometry(rt, w["mx0"], w["lights"].direction[0])
+    srec, sbin, dims = shadow_records(RenderOptions(shadow_size=size), g,
+                                      sv.view[None], sv.proj[None])
+    k2 = kernel_report("phase 10", f"production static bake "
+                       f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
+                       True, smi)
+    del w, geom, img0, img1, rec, srec
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall=wall, device=devt, k1=k1, k2=k2)
+
+
+def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
+    """Phase 11: the JAX bench's ``batched_render`` (bench.py:423-497): 64
+    views × 256² of one shared terrain, kernel_attrs over member geometry,
+    ``render_frame_batch`` with one shared light atlas: 1 warm-up +
+    ``reps`` batches, wall and device ms, frames/s, peak memory; the shadow
+    pass launched once per batch; K1 (extras records built from faces and
+    normals) and K2 (the shared atlas) bit-exact with times and bounds."""
+    import torch
+
+    from clap_tpu_torch.render.pipeline import (clip_transform, per_env,
+                                                render_frame_batch,
+                                                shadow_records,
+                                                surface_records)
+    from clap_tpu_torch.render.view import bounds_light_subview
+
+    w = build_batched(dev, N_SLICE, RES)
+    require(w["opts"].kernel_attrs, "batched terrain is kernel_attrs "
+            "eligible")
+    geom, opts = w["geom"], w["opts"]
+    n, res = w["eyes"].shape[0], opts.width
+
+    def frame():
+        return render_frame_batch(opts, geom, w["views"], w["proj"],
+                                  w["lights"], w["eyes"], far=100.0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    img = frame()
+    torch.cuda.synchronize()
+    one = read_launches()
+    wall, devt = frame_times(frame, reps)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(one == {"raster_tile": 1, "raster_depth": 1},
+            f"one K1 and one K2 launch per batch (the shared atlas): {one}")
+    img_std = float(img.std())
+    require(bool(torch.isfinite(img).all()), "batched images finite")
+    require(img_std > 0.01, "batched img_std > 0.01")
+    log(f"phase 11 batched_render: {n} views x {res}^2 of one terrain "
+        f"({geom.faces.shape[0]} triangles, member granularity, "
+        f"kernel_attrs), shared light atlas: {spread(wall)} wall / "
+        f"{spread(devt)} device busy per batch ({n * 1e3 / median(wall):.1f} "
+        f"frames/s), peak memory {peak / 2**30:.3f} GiB, img_std "
+        f"{img_std:.4f}; launches per batch {one}, in the driven run "
+        f"({driven_run(reps, 'batches')}) {launches} ({smi})")
+    gb = per_env(geom, n)
+    rec, binned, _ = surface_records(
+        opts, gb, clip_transform(gb.verts, w["views"], w["proj"]))
+    k1 = kernel_report("phase 11", f"batched {n} views extras records from "
+                       f"faces and normals", check_tile, rec, binned,
+                       (res, res), False, smi)
+    g1 = per_env(geom, 1)
+    sv, _ = bounds_light_subview(geom.verts.amin(0) - 1.0,
+                                 geom.verts.amax(0) + 1.0,
+                                 w["lights"].direction[0], far=100.0)
+    srec, sbin, dims = shadow_records(opts, g1, sv.view[None], sv.proj[None])
+    k2 = kernel_report("phase 11", f"batched shared atlas "
+                       f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
+                       True, smi)
+    del w, geom, img, rec, srec
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_batch=one, wall=wall, device=devt,
+                k1=k1, k2=k2)
+
+
+def run_shading_rate_phase(dev, smi, sync, require, reps=5):
+    """Phase 12: the JAX bench's ``shading_rate`` (bench.py:739-755,
+    879-884): the skinned flagship at 8 envs rendered at internal_scale 2
+    and 1 from the same state after one step, the PSNR between them; then
+    64 envs at internal_scale 2 driven as phase 5 (1 warm-up + 10 frames),
+    ms/frame and env-fps, wall and device ms of ``reps`` more frames."""
+    import dataclasses
+
+    import torch
+
+    from clap_tpu_torch.engine.frame import step_and_render
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    w = build_slice(dev, 8)
+    static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                w["lights"].direction[0], shadow_size=1024,
+                                far=200.0)
+    gs, full = step_and_render(w["gw"], make_renderer(w, static), w["gs"],
+                               w["ins"])
+    half = make_renderer(dict(w, opts=dataclasses.replace(
+        w["opts"], internal_scale=2)), static)(gs.engine, gs.joint_mats)
+    sync()
+    require(half.shape == full.shape == (full.shape[0], RES, RES, 3),
+            "internal_scale 2 image has the full shape")
+    require(bool(torch.isfinite(half).all()), "internal_scale 2 finite")
+    require(not torch.equal(half, full), "internal_scale 2 is not the full "
+            "resolution frame")
+    mse = float(((half - full) ** 2).mean())
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+    log(f"phase 12 shading_rate: {full.shape[0]} envs x {RES}^2 skinned "
+        f"flagship, "
+        f"internal_scale 2 vs 1 from the same state: PSNR {psnr:.2f} dB")
+    del w, gs, full, half
+    w = build_slice(dev)
+    w["opts"] = dataclasses.replace(w["opts"], internal_scale=2)
+    d = drive_frames(w, sync, require)
+    renderer, gs = d["renderer"], d["gs"]
+    wall, devt = frame_times(
+        lambda: step_and_render(w["gw"], renderer, gs, w["ins"]), reps)
+    log(f"phase 12 shading_rate: {N_SLICE} envs x {RES}^2 at internal_scale"
+        f" 2 ({RES // 2}^2 shading): {d['dt'] * 1e3:.2f} ms/frame over 10 "
+        f"frames, {N_SLICE / d['dt']:.1f} env-fps; {spread(wall)} wall / "
+        f"{spread(devt)} device busy per frame; peak memory "
+        f"{d['peak'] / 2**30:.2f} GiB, {d['summary']}; launches in the "
+        f"driven run {d['launches']} ({smi})")
+    out = dict(launches=d["launches"], psnr=psnr, ms=d["dt"] * 1e3,
+               wall=wall, device=devt)
+    del d, renderer, gs, w
     torch.cuda.empty_cache()
     return out
 

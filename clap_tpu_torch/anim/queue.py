@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import mathx as mx
 from ..device import resolve_device
 
 QUEUE_MAX = 4
@@ -41,9 +42,10 @@ def queue_push(q: AnimQueue, clip_id, repeat, clear) -> AnimQueue:
     With ``clear`` the new clip becomes current (time resets). A full
     queue drops the appended clip."""
     dev = q.clip.device
-    clip_id = torch.as_tensor(clip_id, dtype=torch.int32, device=dev)
-    repeat = torch.as_tensor(repeat, dtype=torch.bool, device=dev)
-    clear = torch.as_tensor(clear, dtype=torch.bool, device=dev)
+    clip_id, repeat, clear = (
+        x.to(dt) if isinstance(x, torch.Tensor) else mx.const(x, dev, dt)
+        for x, dt in ((clip_id, torch.int32), (repeat, torch.bool),
+                      (clear, torch.bool)))
     first = torch.arange(QUEUE_MAX, device=dev) == 0
     cleared_clip = torch.where(first, clip_id[..., None], -1)
     cleared_rep = first & repeat[..., None]

@@ -11,6 +11,8 @@ This module imports no JAX: the trees arrive as numpy already.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -43,14 +45,26 @@ _TYPES = {cls.__name__: cls for cls in (
 _PY_BOOL_FIELDS = {"any_material", "flat_eligible", "camera_occlusion"}
 
 
+def _scene_host(tree):
+    from .engine.state import scene_host
+
+    return scene_host(tree.bodies, tree.char_params.body)
+
+
+# port-only trailing fields (host-side, after the JAX package's fields) and
+# how the bridge fills them from the JAX package's numpy tree
+_PORT_ONLY = {("SceneConfig", "host"): _scene_host}
+
+
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every non-None leaf of a NamedTuple/tuple tree."""
-    if tree is None:
-        return None
+    """Apply ``fn`` to every non-None leaf of a NamedTuple/tuple tree;
+    host-side dataclasses (SceneHost) stay as they are."""
+    if tree is None or dataclasses.is_dataclass(tree):
+        return tree
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, x) for x in tree))
     if isinstance(tree, (tuple, list)):
@@ -59,14 +73,17 @@ def tree_map(fn, tree):
 
 
 def _convert_node(tree, leaf):
-    if tree is None:
-        return None
+    if tree is None or dataclasses.is_dataclass(tree):
+        return tree
     if _is_namedtuple(tree):
         name = type(tree).__name__
         cls = _TYPES.get(name)
         if cls is None:
             raise TypeError(f"no port type named {name}")
-        if tuple(cls._fields) != tuple(tree._fields):
+        n = len(tree._fields)
+        extra = cls._fields[n:]
+        if tuple(cls._fields[:n]) != tuple(tree._fields) or any(
+                (name, f) not in _PORT_ONLY for f in extra):
             raise TypeError(f"{name}: fields {tree._fields} do not match "
                             f"the port's {cls._fields}")
         vals = []
@@ -75,6 +92,7 @@ def _convert_node(tree, leaf):
                 vals.append(bool(np.asarray(x)))
             else:
                 vals.append(_convert_node(x, leaf))
+        vals += [_PORT_ONLY[(name, f)](tree) for f in extra]
         return cls(*vals)
     if isinstance(tree, (tuple, list)):
         return type(tree)(_convert_node(x, leaf) for x in tree)

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import mathx as mx
 from ..mathx import cross
 from ..physics.narrowphase import StaticWorld, raycast_down
 from ..physics.sweep import sweep_capsule
@@ -121,7 +122,7 @@ def ground_collide(world: StaticWorld, params: BodyParams, pos, idx: int,
     ray_off = params.ray_off[idx] - GROUND_SAFETY
     ray_len = params.yoffset[idx] - ray_off + GROUND_EPSILON
     p = pos[:, idx]
-    up = torch.tensor([0.0, 1.0, 0.0], device=pos.device)
+    up = mx.const([0.0, 1.0, 0.0], pos.device)
     origin = p - up * ray_off
 
     dist, normal, hit, ent = raycast_down(world, origin, 2.0 * ray_len)
@@ -140,12 +141,15 @@ def ground_collide(world: StaticWorld, params: BodyParams, pos, idx: int,
 def character_move(world: StaticWorld, params: BodyParams,
                    cp: CharParams, cs: CharState,
                    body_pos, motion_dx, motion_dz, jump_input, dt,
-                   dash_input=None):
+                   dash_input=None, idx: int = None):
     """character_move (character.c:450-537) for one character slot in
     every env. ``cp`` holds 0-dim tensors of that slot; body_pos (B, N, 3);
-    motion/jump/dash (B,). Returns (new_body_pos_self (B, 3), CharState)."""
+    motion/jump/dash (B,); ``idx``: the slot's body index on the host
+    (SceneConfig.host), read from ``cp.body`` when not given. Returns
+    (new_body_pos_self (B, 3), CharState)."""
     dev = body_pos.device
-    idx = int(cp.body)
+    if idx is None:
+        idx = int(cp.body)
     dt = torch.clamp(dt, 0.0, DT_CLAMP_MAX)
     zeros3 = torch.zeros_like(cs.velocity)
 
@@ -191,7 +195,7 @@ def character_move(world: StaticWorld, params: BodyParams,
 
     # slope-aligned ground basis (character.c:500-527)
     newy = gnormal
-    oldx = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    oldx = mx.const([1.0, 0.0, 0.0], dev)
     newz = cross(oldx, newy)
     newx = cross(newy, newz)
     newx = newx / torch.clamp(_norm(newx), min=1e-9)[:, None]

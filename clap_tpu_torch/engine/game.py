@@ -74,7 +74,7 @@ def _head_target(gw: GameWorld, gs: GameSessionState):
     """The rig's JOINT_HEAD world position + 0.2·height per character
     (camera_target camera.c:174-206), from the PREVIOUS frame's joint
     matrices (the head rides one frame behind, as in the JAX package)."""
-    bind = torch.linalg.inv(gw.anim_sk.invbind)          # (J, 4, 4)
+    bind = torch.linalg.inv_ex(gw.anim_sk.invbind).inverse    # (J, 4, 4)
     hj = torch.clamp(gw.head_joint, min=0).long()        # (C,)
     chars = torch.arange(hj.shape[0], device=hj.device)
     # joint global = skinning · bind; head world = entity mx · global
@@ -93,7 +93,8 @@ def _ride_joints(gw: GameWorld, st: EngineState, jt):
     world = parent_mx · joint_global · offset, joint globals recovered
     from the skinning matrices through the bind pose."""
     ent = gw.scene.entities
-    glob = jt @ torch.linalg.inv(gw.anim_sk.invbind)     # (B, C, J, 4, 4)
+    bind = torch.linalg.inv_ex(gw.anim_sk.invbind).inverse
+    glob = jt @ bind                                     # (B, C, J, 4, 4)
     j = torch.clamp(gw.attach_joint, min=0).long()
     parent = torch.clamp(ent.parent, min=0).long()
     pchar = torch.clamp(gw.entity_char[parent], min=0).long() \

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import mathx as mx
 from ..device import resolve_device
 
 PLATFORM_PARK_Y = 100.0     # main.c:96-138: hidden platforms park +100 up
@@ -116,8 +117,7 @@ def game_update(gcfg: GameConfig, gs: GameState, ground_entity,
     plat_on = is_platform \
         & group_on[:, torch.clamp(gcfg.platform_group, min=0).long()]
     vis_override = torch.where(is_platform, plat_on, True)
-    park = torch.tensor([0.0, PLATFORM_PARK_Y, 0.0],
-                        device=gcfg.platform_on_pos.device)
+    park = mx.const([0.0, PLATFORM_PARK_Y, 0.0], gcfg.platform_on_pos.device)
     pos_override = torch.where((is_platform & ~plat_on)[..., None],
                                gcfg.platform_on_pos + park,
                                gcfg.platform_on_pos)

@@ -9,14 +9,16 @@ wiring, per-model AABBs.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..char.controller import CharParams, CharState
 from ..device import resolve_device
 from ..physics.narrowphase import StaticWorld
-from ..physics.world import BodyParams, PhysState
+from ..physics.world import BodyFlags, BodyParams, PhysState, body_flags
 
 
 class EntityParams(NamedTuple):
@@ -56,8 +58,31 @@ class EngineState(NamedTuple):
     cameras: CameraState = None  # multi-camera bank (not ported: raises)
 
 
+@dataclass(frozen=True)
+class SceneHost:
+    """The host-side facts of a scene that the step branches on, decided
+    once where the scene is built, so a step reads nothing back from the
+    device: the body set's solver flags and each character's body slot."""
+
+    body_flags: BodyFlags
+    char_body: tuple
+
+
+def scene_host(bodies, char_body) -> SceneHost:
+    """SceneHost from the host arrays (or tensors, read to the host once)
+    that build a scene: BodyParams ``bodies`` and the characters' body
+    slots ``char_body`` (C,)."""
+    cb = char_body.detach().cpu().numpy() \
+        if isinstance(char_body, torch.Tensor) else np.asarray(char_body)
+    return SceneHost(body_flags=body_flags(bodies.half_len,
+                                           bodies.kinematic),
+                     char_body=tuple(int(b) for b in cb.reshape(-1)))
+
+
 class SceneConfig(NamedTuple):
-    """Static per-scene data shared by every env."""
+    """Static per-scene data shared by every env. ``host`` (a port-only
+    field, after the JAX package's fields) carries the SceneHost; the
+    bridge fills it from the JAX package's host arrays."""
 
     world: StaticWorld
     bodies: BodyParams
@@ -69,6 +94,7 @@ class SceneConfig(NamedTuple):
     camera_char: torch.Tensor = None
     ent_rest_pos: torch.Tensor = None
     ent_rest_rot: torch.Tensor = None
+    host: SceneHost = None
 
 
 def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,

@@ -18,7 +18,7 @@ from .. import mathx as mx
 from ..device import resolve_device
 from ..char import controller as C
 from ..physics import world as W
-from .state import CameraState, EngineState, SceneConfig
+from .state import CameraState, EngineState, SceneConfig, scene_host
 
 
 class Inputs(NamedTuple):
@@ -54,6 +54,13 @@ def _char_params(cfg: SceneConfig, ci: int):
     return type(cfg.char_params)(*(x[ci] for x in cfg.char_params))
 
 
+def _host(cfg: SceneConfig):
+    """The scene's SceneHost; a config built without one reads it from its
+    tensors (a copy to the host)."""
+    return cfg.host if cfg.host is not None \
+        else scene_host(cfg.bodies, cfg.char_params.body)
+
+
 def _characters_move(cfg: SceneConfig, st: EngineState, inputs: Inputs, dt):
     """scene_characters_move (scene.c:1058): rosters of ≤2 characters
     update sequentially — later characters see earlier ones' new body
@@ -65,6 +72,7 @@ def _characters_move(cfg: SceneConfig, st: EngineState, inputs: Inputs, dt):
         raise NotImplementedError(
             "rosters of more than 2 characters (the vmapped batch move)")
     body_pos = st.phys.pos
+    char_body = _host(cfg).char_body
     new_chars = []
     for ci in range(n_chars):
         cp = _char_params(cfg, ci)
@@ -72,8 +80,8 @@ def _characters_move(cfg: SceneConfig, st: EngineState, inputs: Inputs, dt):
         p_new, cs2 = C.character_move(
             cfg.world, cfg.bodies, cp, _char(st.chars, ci), body_pos,
             inputs.motion[:, ci, 0], inputs.motion[:, ci, 1],
-            inputs.jump[:, ci], dt, dash_input=dash)
-        body_pos = C._set_body(body_pos, int(cp.body), p_new)
+            inputs.jump[:, ci], dt, dash_input=dash, idx=char_body[ci])
+        body_pos = C._set_body(body_pos, char_body[ci], p_new)
         new_chars.append(cs2)
     return st._replace(phys=st.phys._replace(pos=body_pos),
                        chars=_stack_chars(new_chars))
@@ -90,10 +98,11 @@ def _apply_char_push(cfg: SceneConfig, st: EngineState, dt):
     n = vel.shape[1]
     inv_m = 1.0 / torch.clamp(bodies.mass, min=1e-6)
     ar = torch.arange(n, device=vel.device)
+    char_body = _host(cfg).char_body
     for ci in range(cfg.char_params.body.shape[0]):
         b = st.chars.push_body[:, ci]
         sel = (ar[None, :] == b[:, None]) & dyn
-        m_char = bodies.mass[int(cfg.char_params.body[ci])]
+        m_char = bodies.mass[char_body[ci]]
         dv = st.chars.velocity[:, ci][:, None, :] \
             * (m_char * dt * inv_m)[None, :, None]
         vel = vel + torch.where(sel[..., None], dv, 0.0)
@@ -107,10 +116,11 @@ def _limbo(cfg: SceneConfig, st: EngineState):
     n_chars = cfg.char_params.body.shape[0]
     if not n_chars:
         return st
-    up = torch.tensor([0.0, 1.0, 0.0], device=body_pos.device)
+    up = mx.const([0.0, 1.0, 0.0], body_pos.device)
+    char_body = _host(cfg).char_body
     new_chars = []
     for ci in range(n_chars):
-        b = int(cfg.char_params.body[ci])
+        b = char_body[ci]
         bp = body_pos[:, b]
         yoff = cfg.bodies.yoffset[b]
         new_pos, cs2, fell = C.limbo_rescue(_char(st.chars, ci),
@@ -169,7 +179,7 @@ def _camera_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
     dist = torch.clamp(cam.dist + d[:, 2], 1.0, 50.0)
     n_chars = cfg.char_params.body.shape[0]
     if control is None:
-        b0 = int(cfg.char_params.body[0]) if n_chars else 0
+        b0 = _host(cfg).char_body[0] if n_chars else 0
         target = st.phys.pos[:, b0]
     else:
         follow = control.long()
@@ -203,7 +213,8 @@ def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
     if st.cameras is not None or cfg.camera_char is not None:
         raise NotImplementedError("multi-camera banks")
     dev = st.pos.device
-    dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.full((), dt, dtype=torch.float32, device=dev)
     # static-trimesh validity follows entity visibility (per env)
     world = cfg.world
     if world.tri_entity is not None:
@@ -217,7 +228,8 @@ def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
     st = _characters_move(cfg, st, inputs, dt)
     st = _apply_char_push(cfg, st, dt)
     st = st._replace(phys=W.phys_step(world, cfg.bodies, st.phys, dt,
-                                      max_substeps))
+                                      max_substeps,
+                                      flags=_host(cfg).body_flags))
     st = _limbo(cfg, st)
     st = _scene_update(cfg, st)
     st = _camera_update(cfg, st, inputs, control, head_target,

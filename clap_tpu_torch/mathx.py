@@ -14,6 +14,7 @@ python-number arguments are promoted to float32 tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,6 +26,32 @@ def _t(x, like=None):
         return x
     dev = like.device if isinstance(like, torch.Tensor) else None
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _frozen(v):
+    return tuple(_frozen(x) for x in v) if isinstance(v, (list, tuple)) \
+        else v
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const(values, device=None, dtype=torch.float32):
+    """The constant tensor of ``values`` (a number or nested sequence) on
+    ``device``, copied from the host once per (values, dtype, device) and
+    kept: per-frame code reads it with no host-to-device copy after its
+    first call. Never modify it in place. For the few fixed values of the
+    frame code (axes, defaults, options), not for data."""
+    return _const(_frozen(values), dtype, torch.device(device or "cpu"))
+
+
+def f32(x, device=None):
+    """``x`` as a float32 tensor on ``device``: a tensor as it is, a
+    number as a ``const``."""
+    return x.to(torch.float32) if isinstance(x, torch.Tensor) \
+        else const(x, device)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +336,7 @@ def mat4_inverse_rigid(m):
     also works — entity3d keeps inverse_mx for lighting, model.c:1677)."""
     r = m[..., :3, :3]
     t = m[..., :3, 3]
-    r_inv = torch.linalg.inv(r)
+    r_inv = torch.linalg.inv_ex(r).inverse
     m_out = mat4_identity(m.shape[:-2], m.dtype, m.device).clone()
     m_out[..., :3, :3] = r_inv
     m_out[..., :3, 3] = -_mv(r_inv, t)
@@ -337,7 +364,7 @@ def mat4_look_at_safe(eye, center, up):
     when forward ~ parallel to up."""
     f = normalize(center - eye)
     dp = torch.abs(dot(f, normalize(up)))[..., None]
-    alt = torch.tensor([0.0, 0.0, -1.0], dtype=eye.dtype, device=eye.device)
+    alt = const([0.0, 0.0, -1.0], eye.device, eye.dtype)
     up_adj = torch.where(dp > 0.999, alt, up)
     return mat4_look_at(eye, center, up_adj)
 
@@ -345,9 +372,8 @@ def mat4_look_at_safe(eye, center, up):
 def mat4_perspective(fovy, aspect, near, far, device=None):
     """GL-style perspective projection (linmath.h mat4x4_perspective),
     z in [-1, 1] NDC."""
-    fovy, aspect, near, far = (
-        torch.as_tensor(x, dtype=torch.float32, device=device)
-        for x in (fovy, aspect, near, far))
+    fovy, aspect, near, far = (f32(x, device)
+                               for x in (fovy, aspect, near, far))
     a = 1.0 / torch.tan(fovy / 2.0)
     batch = torch.broadcast_shapes(fovy.shape, aspect.shape, near.shape,
                                    far.shape)
@@ -356,7 +382,7 @@ def mat4_perspective(fovy, aspect, near, far, device=None):
     m[..., 1, 1] = a
     m[..., 2, 2] = -(far + near) / (far - near)
     m[..., 2, 3] = -2.0 * far * near / (far - near)
-    m[..., 3, 2] = -1.0
+    m[..., 3, 2].fill_(-1.0)
     return m
 
 
@@ -364,8 +390,7 @@ def mat4_ortho(l, r, b, t, n, f):
     """GL-style orthographic projection (linmath.h mat4x4_ortho)."""
     dev = next((x.device for x in (l, r, b, t, n, f)
                 if isinstance(x, torch.Tensor)), None)
-    l, r, b, t, n, f = (torch.as_tensor(x, dtype=torch.float32, device=dev)
-                        for x in (l, r, b, t, n, f))
+    l, r, b, t, n, f = (f32(x, dev) for x in (l, r, b, t, n, f))
     batch = torch.broadcast_shapes(*(x.shape for x in (l, r, b, t, n, f)))
     m = torch.zeros((*batch, 4, 4), dtype=torch.float32, device=dev)
     m[..., 0, 0] = 2.0 / (r - l)
@@ -374,7 +399,7 @@ def mat4_ortho(l, r, b, t, n, f):
     m[..., 0, 3] = -(r + l) / (r - l)
     m[..., 1, 3] = -(t + b) / (t - b)
     m[..., 2, 3] = -(f + n) / (f - n)
-    m[..., 3, 3] = 1.0
+    m[..., 3, 3].fill_(1.0)
     return m
 
 

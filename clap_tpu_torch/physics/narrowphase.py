@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import mathx as mx
 from .heightfield import (CONTACT_PATCH, Heightfield, hf_face_normal,
                           hf_face_plane_patch, hf_height, hf_patch)
 from .shapes import capsule_triangle_contact, ray_triangle
@@ -88,8 +89,7 @@ def hf_capsule_contacts(hf: Heightfield, p_bot, p_top, r, n_samples: int = 9,
 
     ``patch``: optional (patch, gx0, gz0) from hf_patch whose batch dims
     are the query's leading dims (it may cover fewer trailing dims)."""
-    offs = torch.tensor(_HF_SAMPLE_OFFS[:n_samples], dtype=torch.float32,
-                        device=p_bot.device)                 # (S, 2)
+    offs = mx.const(_HF_SAMPLE_OFFS[:n_samples], p_bot.device)   # (S, 2)
     r = torch.as_tensor(r, dtype=torch.float32, device=p_bot.device)
     rs = r[..., None]
     if two_ended:
@@ -165,7 +165,7 @@ def raycast_down(world: StaticWorld, origin, max_dist):
     hf_ok = (hf_dist >= 0) & (hf_dist <= max_dist) & _hf_inside(world.hf, x, z)
     hf_n = hf_face_normal(world.hf, x, z)
 
-    direc = torch.tensor([0.0, -1.0, 0.0], device=origin.device)
+    direc = mx.const([0.0, -1.0, 0.0], origin.device)
     tris = world.tris
     t, hit = ray_triangle(origin[..., None, :], direc, tris[:, 0],
                           tris[:, 1], tris[:, 2])

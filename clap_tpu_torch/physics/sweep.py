@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import mathx as mx
 from .heightfield import SWEEP_PATCH, hf_patch
 from .narrowphase import StaticWorld, capsule_world_contacts
 from .shapes import closest_pt_segment_segment
@@ -72,7 +73,7 @@ def sweep_capsule(world: StaticWorld, params: BodyParams, body_pos,
                                         q0[:, None], q1[:, None])
     diff = ci - cj
     dist = _norm(diff)                                         # (B, S, N)
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    up = mx.const([0.0, 1.0, 0.0], dev)
     bnrm = torch.where((dist > 1e-9)[..., None],
                        diff / torch.clamp(dist, min=1e-9)[..., None], up)
     depth = radius + params.radius - dist

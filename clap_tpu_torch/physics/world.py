@@ -19,7 +19,9 @@ indexing and ``index_add``.
 """
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -112,16 +114,30 @@ def capsule_segment(pos, half_len, quat=None):
     return pos - up, pos + up
 
 
-def body_flags(params: BodyParams):
-    """Host-side static flags of the body set: (two_ended, iso).
+@dataclass(frozen=True)
+class BodyFlags:
+    """Static facts of a body set that pick the solver's code path, decided
+    once on the host where the BodyParams are built (the JAX package
+    resolves them at trace time from the same host arrays).
 
     two_ended: some dynamic body is a real capsule (its contacts must cover
     both segment ends); iso: every dynamic body is a sphere (isotropic
     inertia, the solver skips the 3×3 inertia work)."""
-    hl = params.half_len.detach().cpu().numpy()
-    kin = params.kinematic.detach().cpu().numpy()
-    tumbling = hl * ~kin
-    return bool(np.any(tumbling > 0)), bool(np.all(tumbling == 0))
+
+    two_ended: bool
+    iso: bool
+
+
+def body_flags(half_len, kinematic) -> BodyFlags:
+    """BodyFlags of a body set from its host arrays: half_len (N,) and
+    kinematic (N,) bool (numpy, or tensors, which are read to the host)."""
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    tumbling = host(half_len) * ~host(kinematic)
+    return BodyFlags(two_ended=bool(np.any(tumbling > 0)),
+                     iso=bool(np.all(tumbling == 0)))
 
 
 def _norm(v):
@@ -161,8 +177,10 @@ def _static_contacts(world: StaticWorld, params: BodyParams, pos, quat,
     return torch.where(dup, -INF, d), n, c.point
 
 
+@functools.lru_cache(maxsize=None)
 def _pair_indices(n: int, device=None):
-    """Static i<j pair list: (I, J) long tensors of length n(n−1)/2."""
+    """Static i<j pair list: (I, J) long tensors of length n(n−1)/2, made
+    once per (n, device)."""
     iu = np.triu_indices(n, k=1)
     return (torch.as_tensor(iu[0], dtype=torch.long, device=device),
             torch.as_tensor(iu[1], dtype=torch.long, device=device))
@@ -177,7 +195,7 @@ def _pair_contacts(params: BodyParams, pos, quat, I, J):
     diff = ci - cj
     dist = _norm(diff)
     normal = diff / torch.clamp(dist, min=1e-9)[..., None]
-    up = torch.tensor([0.0, 1.0, 0.0], device=pos.device)
+    up = mx.const([0.0, 1.0, 0.0], pos.device)
     normal = torch.where((dist > 1e-9)[..., None], normal, up)
     ri = params.radius[I]
     rj = params.radius[J]
@@ -247,7 +265,7 @@ def _substep(world: StaticWorld, params: BodyParams, state: PhysState, dt,
     solve_mask = params.active & ~params.kinematic & ~disabled
 
     # --- gravity
-    g = torch.tensor(GRAVITY, device=dev)
+    g = mx.const(GRAVITY, dev)
     vel = vel + torch.where(solve_mask[..., None], g * dt, 0.0)
 
     bounce_s = params.bounce
@@ -402,10 +420,15 @@ def _where_env(do, new, old):
 
 def phys_step(world: StaticWorld, params: BodyParams, state: PhysState,
               dt, max_substeps: int = MAX_SUBSTEPS,
-              solver_passes: int = N_SOLVER_PASSES) -> PhysState:
+              solver_passes: int = N_SOLVER_PASSES,
+              flags: BodyFlags = None) -> PhysState:
     """phys_step (physics.c:773-787): fixed-dt accumulator, ≤ max_substeps
-    masked substeps per frame."""
-    two_ended, iso = body_flags(params)
+    masked substeps per frame. ``flags``: the body set's BodyFlags, decided
+    where the params were built (SceneConfig.host); without them they are
+    read from ``params``, which copies to the host."""
+    if flags is None:
+        flags = body_flags(params.half_len, params.kinematic)
+    two_ended, iso = flags.two_ended, flags.iso
     acc = state.time_acc + dt
     patches = _body_patches(world, state.pos, two_ended)
     for _ in range(max_substeps):

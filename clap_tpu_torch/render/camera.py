@@ -20,7 +20,7 @@ OCCLUSION_ITERS = 3
 
 
 def _f32(x, device):
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return mx.const(x, device)
 
 
 def orbit_quat(pitch, yaw):

@@ -19,6 +19,7 @@ raise NotImplementedError.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -31,7 +32,7 @@ from .raster import (CLUSTER, GBuffer, assemble_tri_records, bin_triangles,
                      clip_near_records, compact_faces, ent_pack_stride,
                      project_to_screen, rasterize, rasterize_attrs,
                      rasterize_depth, tile_dims)
-from .view import cascade_subviews
+from .view import bounds_light_subview, cascade_subviews
 
 
 @dataclass(frozen=True)
@@ -78,9 +79,16 @@ class SceneGeometry(NamedTuple):
     cluster-record path ``comp``/``comp_valid``/``comp_ent``,
     ``ent_rot``, ``shadow_face_valid`` and ``shadow_corner_verts`` carry a
     leading env axis; tables (faces, ent_flat, shadow_faces) are shared.
-    In the member-granularity path ``verts``, ``face_valid``, ``ent_rot``
-    and ``shadow_face_valid`` are per env; the attribute tables (model-
-    local normals, materials, uv, ...) and faces are shared."""
+    In the member-granularity path the ``PER_ENV`` fields (``verts``,
+    ``face_valid``, ``ent_rot``, ``shadow_face_valid`` and the corner
+    streams ``corner_verts`` / ``shadow_corner_verts``) are per env; the
+    attribute tables (model-local normals, ``corner_normals``, materials,
+    uv, ...) and faces are shared.
+
+    Corner streams (static geometry, ``expand_corners_*``):
+    ``corner_verts`` / ``corner_normals`` corner-MAJOR over ``faces``
+    (clip_near_records' layout), ``shadow_corner_verts`` in RECORD order
+    over the shadow face stream (assemble_tri_records' layout)."""
 
     verts: torch.Tensor
     normals: torch.Tensor
@@ -106,6 +114,27 @@ class SceneGeometry(NamedTuple):
     comp: torch.Tensor = None
     comp_valid: torch.Tensor = None
     comp_ent: torch.Tensor = None
+
+
+# the member-granularity fields that carry a leading env axis
+PER_ENV = ("verts", "face_valid", "ent_rot", "shadow_face_valid",
+           "corner_verts", "shadow_corner_verts")
+
+
+def per_env(geom: SceneGeometry, n: int) -> SceneGeometry:
+    """The geometry of ONE shared scene (``PER_ENV`` fields without an env
+    axis) as ``n`` envs: expanded views, nothing copied."""
+    return geom._replace(**{
+        f: getattr(geom, f).expand(n, *getattr(geom, f).shape)
+        for f in PER_ENV if getattr(geom, f) is not None})
+
+
+def _check_corners(geom: SceneGeometry):
+    """A corner stream built over a different face table would render the
+    wrong triangles."""
+    if geom.corner_verts is not None \
+            and geom.corner_verts.shape[-2] != 3 * geom.faces.shape[0]:
+        raise ValueError("corner_verts does not match the face stream")
 
 
 class TextureSets(NamedTuple):
@@ -148,14 +177,18 @@ def shadow_records(opts: RenderOptions, geom: SceneGeometry, casc_views,
     dev = casc_views.device
     if pad:
         faces0 = torch.cat([faces0, faces0.new_zeros(pad, 3)])
-        valid0 = torch.cat([valid0, valid0.new_zeros(B, pad)], dim=-1)
+        valid0 = torch.cat([valid0, valid0.new_zeros(*valid0.shape[:-1],
+                                                     pad)], dim=-1)
     if pre:
+        # pad rows project with w = 1; only valid0's pad entries keep them
+        # out
         src = geom.shadow_corner_verts
         if src.shape[-2] != 3 * (faces0.shape[0] - pad):
             raise ValueError("shadow_corner_verts does not match the "
                              "shadow face stream")
         if pad:
-            src = torch.cat([src, src.new_zeros(B, 3 * pad, 3)], dim=1)
+            src = torch.cat([src, src.new_zeros(*src.shape[:-2], 3 * pad,
+                                                3)], dim=-2)
     else:
         src = geom.verts
     sxs, sys_, zs, iws = [], [], [], []
@@ -196,38 +229,60 @@ def shadow_pass_all(opts: RenderOptions, geom: SceneGeometry, casc_views,
     return torch.stack([d, d * d], dim=-1).reshape(B, n_casc, s, s, 2)
 
 
-def surface_records(opts: RenderOptions, geom: SceneGeometry):
-    """Near-clipped 22-column extras records of every env's cluster-record
-    geometry and their binning. Returns (rec, binned, stride)."""
+def surface_records(opts: RenderOptions, geom: SceneGeometry, clip=None):
+    """Near-clipped 22-column extras records (the model-local normal as
+    extras, tid·stride + entity as id) and their binning: of every env's
+    cluster-record geometry (``comp``), or of member-granularity geometry
+    whose clip-space vertices (or corner stream) are ``clip`` (B, V, 4),
+    its normals (or ``corner_normals``) the extras and ``face_entity`` the
+    packed entity. Returns (rec, binned, stride)."""
     W, H = opts.width, opts.height
-    if geom.comp is None:
-        raise NotImplementedError(
-            "kernel_attrs over member-granularity geometry (faces/vextra)")
-    if geom.ent_rot is None or geom.ent_flat is None:
-        raise ValueError("kernel_attrs needs ent_rot and ent_flat")
+    if geom.ent_rot is None or geom.ent_flat is None \
+            or (geom.face_entity is None and geom.comp is None):
+        raise ValueError("kernel_attrs needs local-attrs geometry with "
+                         "ent_flat (RenderTables.flat_eligible)")
     n_ent = geom.ent_rot.shape[-3]
-    T = geom.comp.shape[-1]
+    T = geom.comp.shape[-1] if geom.comp is not None else geom.faces.shape[0]
     stride = ent_pack_stride(n_ent)
     if 2 * T * stride >= 1 << 24:
         raise ValueError(
             f"kernel_attrs limit exceeded: T={T} with E={n_ent} "
             f"(stride {stride}) needs 2·T·stride < 2^24")
-    comps = [[geom.comp[:, c * 7 + i] for i in range(7)] for c in range(3)]
-    rec, ok, _csrc, _ = clip_near_records(
-        None, None, W, H, geom.comp_valid, tid_pack=geom.comp_ent,
-        pack_stride=stride, components=comps)
+    if geom.comp is not None:
+        comps = [[geom.comp[:, c * 7 + i] for i in range(7)]
+                 for c in range(3)]
+        rec, ok, _csrc, _ = clip_near_records(
+            None, None, W, H, geom.comp_valid, tid_pack=geom.comp_ent,
+            pack_stride=stride, components=comps)
+    else:
+        pre = geom.corner_verts is not None
+        vex = geom.normals
+        if pre:
+            if geom.corner_normals is None:
+                raise ValueError("corner_verts without corner_normals: "
+                                 "kernel_attrs interpolates normals")
+            _check_corners(geom)
+            vex = geom.corner_normals
+        faces, fvalid, fent = geom.faces, geom.face_valid, geom.face_entity
+        if opts.record_compact and not pre:
+            faces, fvalid, fent = compact_faces(
+                faces, fvalid, opts.record_compact, extra=fent.int())
+        rec, ok, _csrc, _ = clip_near_records(
+            clip, faces, W, H, fvalid, vextra=vex, tid_pack=fent,
+            pack_stride=stride, pre_expanded=pre)
     binned = bin_triangles(rec, ok, W, H, cap=opts.raster_cap or None)
     return rec, binned, stride
 
 
-def _surface_kernel_attrs(opts: RenderOptions, geom: SceneGeometry):
-    """Kernel-side attribute interpolation over cluster-record geometry:
-    K1 interpolates iw·(model-local normal) in its d0/d1/s planes and
-    carries tid·stride + entity in its float id; every other attribute is
+def _surface_kernel_attrs(opts: RenderOptions, geom: SceneGeometry,
+                          clip=None):
+    """Kernel-side attribute interpolation (``surface_records``): K1
+    interpolates iw·(model-local normal) in its d0/d1/s planes and carries
+    tid·stride + entity in its float id; every other attribute is
     per-entity flat (geom.ent_flat), looked up per pixel by entity id."""
     W, H = opts.width, opts.height
-    rec, binned, stride = surface_records(opts, geom)
-    B = geom.comp.shape[0]
+    rec, binned, stride = surface_records(opts, geom, clip)
+    B = rec.shape[0]
     n_ent = geom.ent_rot.shape[-3]
     depth, pid, nraw = rasterize_attrs(rec, binned, W, H)
     gb = GBuffer(depth=depth, tri_id=pid,
@@ -236,8 +291,8 @@ def _surface_kernel_attrs(opts: RenderOptions, geom: SceneGeometry):
     # background → the appended all-zero row (the reference's one-hot
     # lookup matches no entity there)
     ent = torch.where(hit_px, torch.remainder(pid, stride), n_ent).long()
-    tbl = torch.cat([geom.ent_rot.reshape(B, n_ent, 9),
-                     geom.ent_flat.expand(B, n_ent, 9)], dim=-1)
+    rot = geom.ent_rot.expand(B, n_ent, 3, 3).reshape(B, n_ent, 9)
+    tbl = torch.cat([rot, geom.ent_flat.expand(B, n_ent, 9)], dim=-1)
     tbl = torch.cat([tbl, tbl.new_zeros(B, 1, 18)], dim=1)
     px = torch.gather(tbl, 1, ent.reshape(B, -1, 1).expand(-1, -1, 18)
                       ).reshape(*ent.shape, 18)
@@ -252,20 +307,21 @@ def _surface_kernel_attrs(opts: RenderOptions, geom: SceneGeometry):
 
 def gather_records(opts: RenderOptions, geom: SceneGeometry, clip):
     """Near-clipped 19-column barycentric records of every env's member-
-    granularity geometry (clip (B, V, 4)) and their binning, after the
-    valid-first face compaction of ``opts.record_compact``. Returns (rec,
+    granularity geometry (clip (B, V, 4), or (B, 3T, 4) of a corner
+    stream) and their binning, after the valid-first face compaction of
+    ``opts.record_compact`` (none on a corner stream). Returns (rec,
     binned, faces, face_entity, csrc): faces (B, T, 3) and
     face_entity (B, T) per env when compacted, else the shared tables."""
-    if geom.corner_verts is not None:
-        raise NotImplementedError("corner-expanded static streams "
-                                  "(corner_verts)")
     W, H = opts.width, opts.height
+    pre = geom.corner_verts is not None
+    _check_corners(geom)
     faces, fvalid, face_entity = geom.faces, geom.face_valid, \
         geom.face_entity
-    if opts.record_compact:
+    if opts.record_compact and not pre:
         faces, fvalid, face_entity = compact_faces(
             faces, fvalid, opts.record_compact, extra=face_entity)
-    rec, ok, csrc, _ = clip_near_records(clip, faces, W, H, fvalid)
+    rec, ok, csrc, _ = clip_near_records(clip, faces, W, H, fvalid,
+                                         pre_expanded=pre)
     binned = bin_triangles(rec, ok, W, H, cap=opts.raster_cap or None)
     return rec, binned, faces, face_entity, csrc
 
@@ -428,14 +484,21 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
         raise NotImplementedError("material_fog")
     W, H = opts.width, opts.height
     dev = cam_view.device
+    if geom.comp is not None:
+        # cluster records arrive in clip space
+        if not opts.kernel_attrs:
+            raise ValueError("cluster-record geometry (comp) requires "
+                             "opts.kernel_attrs")
+        clip = None
+    else:
+        # a corner stream transforms its 3T rows (no per-frame gather)
+        clip = clip_transform(
+            geom.corner_verts if geom.corner_verts is not None
+            else geom.verts, cam_view, cam_proj)
     if opts.kernel_attrs:
         gb, nrm, base, rough, metal, emission, eid_px = \
-            _surface_kernel_attrs(opts, geom)
-    elif geom.comp is not None:
-        raise ValueError("cluster-record geometry (comp) requires "
-                         "opts.kernel_attrs")
+            _surface_kernel_attrs(opts, geom, clip)
     else:
-        clip = clip_transform(geom.verts, cam_view, cam_proj)
         gb, nrm, base, rough, metal, emission, eid_px = _surface_gather(
             opts, geom, clip, base_texture, textures)
 
@@ -446,7 +509,8 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
              + 0.5) / W * 2.0 - 1.0
     ndc_y = 1.0 - 2.0 * (torch.arange(H, device=dev,
                                       dtype=torch.float32)[:, None] + 0.5) / H
-    inv_vp = torch.linalg.inv(cam_proj @ cam_view)[:, None, None]
+    # inv_ex: no singularity check, which would read the device back
+    inv_vp = torch.linalg.inv_ex(cam_proj @ cam_view).inverse[:, None, None]
     p4 = (inv_vp[..., :, 0] * ndc_x.expand(H, W)[..., None]
           + inv_vp[..., :, 1] * ndc_y.expand(H, W)[..., None]
           + inv_vp[..., :, 2] * d_ndc[..., None]
@@ -488,7 +552,7 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
                          emission=emission)
     hdr = shade.shade_pixels(wpos, nrm, eye, mat, lights, tile_mask,
                              shadow_factor=sf)
-    fog_c = torch.tensor(opts.fog_color, device=dev)
+    fog_c = mx.const(opts.fog_color, dev)
     hdr = torch.where(hit2[..., None], hdr, fog_c)
     emit = post.bloom_threshold(emission, opts.bloom_threshold,
                                 opts.bloom_intensity)
@@ -515,19 +579,38 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
     """The canonical frame for every env: cam_view (B, 4, 4), cam_proj
     (4, 4), eye (B, 3). ``textures`` (TextureSets, by each vertex's
     tex_id) or ``base_texture`` (one (S, S, C) texture) shade the
-    gather path. Returns the LDR image (B, H, W, 3)."""
-    for flag, name in ((opts.internal_scale > 1, "internal_scale > 1"),
-                       (opts.model_msaa > 1, "model_msaa > 1"),
+    gather path. ``shadow_moments`` / ``shadow_mvps`` / ``cascade_dists``:
+    a precomputed atlas, per env (B, C, S, S, 2) or shared (C, S, S, 2)
+    (``render_frame_batch``); None fits and renders each env's cascades.
+    ``grain_noise`` and ``lut_volume`` are read only when their options
+    are on. Returns the LDR image (B, H, W, 3)."""
+    for flag, name in ((opts.model_msaa > 1, "model_msaa > 1"),
                        (opts.ssao and opts.ssao_mode != "shift",
                         f"ssao_mode={opts.ssao_mode!r}"),
                        (opts.fog_noise, "fog_noise"),
                        (opts.lighting_lut, "lighting_lut"),
                        (not opts.edge_sobel, "laplace edges"),
                        (particles is not None, "particles"),
-                       (grain_noise is not None, "film grain"),
-                       (lut_volume is not None, "lighting LUT")):
+                       (opts.film_grain > 0 and grain_noise is not None,
+                        "film grain")):
         if flag:
             raise NotImplementedError(name)
+    if opts.internal_scale > 1:
+        # the shading-rate lever: the 3D frame renders at 1/s² of the
+        # pixels; only the final LDR upscale touches full resolution
+        s = opts.internal_scale
+        iopts = dataclasses.replace(opts, width=max(opts.width // s, 8),
+                                    height=max(opts.height // s, 8),
+                                    internal_scale=1)
+        img = render_frame(iopts, geom, cam_view, cam_proj, lights, eye,
+                           far=far, shadow_moments=shadow_moments,
+                           shadow_mvps=shadow_mvps,
+                           cascade_dists=cascade_dists,
+                           static_shadow=static_shadow,
+                           grain_noise=grain_noise, lut_volume=lut_volume,
+                           particles=particles, textures=textures,
+                           base_texture=base_texture)
+        return post.upsample_bilinear(img, opts.height, opts.width)
     W, H = opts.width, opts.height
     dev = cam_view.device
 
@@ -584,7 +667,7 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
                 post.downsample2(post.downsample2(emit)))), H, W)
         color = color + bloom * (opts.bloom_intensity
                                  * (1.0 - fog_f))[..., None]
-    fc = torch.tensor(opts.fog_color, dtype=color.dtype, device=dev)
+    fc = mx.const(opts.fog_color, dev, color.dtype)
     color = color * (1.0 - fog_f[..., None]) + fc * fog_f[..., None]
     color = post.contrast(color, opts.contrast)
     color = shade.tonemap_aces(color) if opts.tonemap_aces else \
@@ -596,6 +679,33 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         color = color * (1.0 - opts.outline_strength * edge_mask
                          * fade)[..., None]
     return shade.oetf_pq(color) if opts.hdr else shade.oetf_srgb(color)
+
+
+def render_frame_batch(opts: RenderOptions, geom: SceneGeometry, cam_views,
+                       cam_proj, lights: Lights, eyes, far: float = 200.0,
+                       shared_shadow: bool = True, scene_aabb=None, **kw):
+    """Render B views of ONE shared scene: ``geom``'s ``PER_ENV`` fields
+    carry no env axis (verts (V, 3), face_valid (T,), ...); cam_views
+    (B, 4, 4), eyes (B, 3).
+
+    shared_shadow=True renders one stable light atlas fitted to the scene
+    bounds (``scene_aabb``, default the verts' min − 1 / max + 1), one K2
+    launch for all views, which every view reads; shared_shadow=False fits
+    and renders each view's own cascades, as ``render_frame_dynamic_batch``
+    does. The views see the geometry through expanded views (nothing is
+    copied per view). Returns (B, H, W, 3)."""
+    sm = mv = cd = None
+    if shared_shadow and lights.active.shape[0] > 0:
+        if scene_aabb is None:
+            scene_aabb = (geom.verts.amin(0) - 1.0, geom.verts.amax(0) + 1.0)
+        sv, cd = bounds_light_subview(scene_aabb[0], scene_aabb[1],
+                                      lights.direction[0], far=far)
+        sm = shadow_pass_all(opts, per_env(geom, 1), sv.view[None],
+                             sv.proj[None])[0]                # (1, S, S, 2)
+        mv = sv.proj @ sv.view                                 # (1, 4, 4)
+    return render_frame(opts, per_env(geom, cam_views.shape[0]), cam_views,
+                        cam_proj, lights, eyes, far=far, shadow_moments=sm,
+                        shadow_mvps=mv, cascade_dists=cd, **kw)
 
 
 def render_frame_dynamic_batch(opts: RenderOptions, geom: SceneGeometry,

@@ -41,17 +41,80 @@ def downsample_pool(img, f: int):
 
 
 def upsample2(img, out_h: int, out_w: int):
-    """Integer-factor upsample (repeat + one half-pixel smoothing tap,
-    upsample.frag)."""
+    """Upsample to (out_h, out_w) (upsample.frag): integer factors repeat
+    and take one half-pixel smoothing tap; other shapes resize bilinearly
+    (``resize_bilinear``)."""
     h, w = img.shape[1], img.shape[2]
     if out_h % h or out_w % w:
-        raise NotImplementedError("non-integer upsample (bilinear resize)")
+        return resize_bilinear(img, out_h, out_w)
     up = img.repeat_interleave(out_h // h, dim=1) \
         .repeat_interleave(out_w // w, dim=2)
     pd = _pad_edge(up, 1, 1)
     return 0.25 * (up + _tap(pd, 0, 1, 1, 1, out_h, out_w)
                    + _tap(pd, 1, 0, 1, 1, out_h, out_w)
                    + _tap(pd, 1, 1, 1, 1, out_h, out_w))
+
+
+def _axis_bilinear_up(x, f: int, dim: int):
+    """True bilinear ×f upsample along ``dim``: repeat + two edge-clamped
+    shifts + a per-phase weight (output centre (j + 0.5)/f − 0.5
+    interpolates the two nearest input samples)."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    up = x.repeat_interleave(f, dim=0)
+    nxt = torch.cat([up[f:], up[-1:].expand(f, *up.shape[1:])], dim=0)
+    prv = torch.cat([up[:1].expand(f, *up.shape[1:]), up[:-f]], dim=0)
+    k = torch.arange(n * f, device=x.device) % f
+    g = (k.to(x.dtype) + 0.5) / f - 0.5
+    g = g.reshape((n * f,) + (1,) * (x.dim() - 1))
+    w = torch.abs(g)
+    nb = torch.where(g >= 0, nxt, prv)
+    return ((1.0 - w) * up + w * nb).movedim(0, dim)
+
+
+def _resize_weights(n_in: int, n_out: int, device):
+    """(n_in, n_out) weights of a half-pixel-centre triangle-kernel resize
+    along one axis, as ``jax.image.resize(..., "bilinear")`` builds them:
+    the kernel widens by n_in/n_out when shrinking, each output's weights
+    are normalised to sum 1 (so the edges clamp), and outputs centred
+    outside the input get none."""
+    f32 = dict(dtype=torch.float32, device=device)
+    inv_scale = 1.0 / torch.tensor(n_out / n_in, **f32)
+    kscale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(n_out, **f32) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(n_in, **f32)[:, None]) \
+        / kscale
+    wts = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    tot = wts.sum(0, keepdim=True)
+    wts = torch.where(torch.abs(tot) > 1000.0 * 1.1920929e-07,
+                      wts / torch.where(tot != 0, tot, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, 0.0)
+
+
+def resize_bilinear(img, out_h: int, out_w: int):
+    """Separable bilinear resize of the spatial axes of (B, H, W[, C]) to
+    (out_h, out_w), ``jax.image.resize``'s weights (``_resize_weights``),
+    rows first."""
+    h, w = img.shape[1], img.shape[2]
+    wy = _resize_weights(h, out_h, img.device)
+    wx = _resize_weights(w, out_w, img.device)
+    x = img if img.dim() == 4 else img[..., None]
+    x = torch.einsum("bhwc,hH->bHwc", x, wy)
+    x = torch.einsum("bHwc,wW->bHWc", x, wx)
+    return x if img.dim() == 4 else x[..., 0]
+
+
+def upsample_bilinear(img, out_h: int, out_w: int):
+    """Exact separable bilinear upsample of (B, H, W[, C]) (the
+    internal-resolution lever's final LDR upscale): integer factors take
+    repeat + shifts (``_axis_bilinear_up``), other shapes
+    ``resize_bilinear``."""
+    h, w = img.shape[1], img.shape[2]
+    if out_h % h == 0 and out_w % w == 0:
+        return _axis_bilinear_up(_axis_bilinear_up(img, out_h // h, 1),
+                                 out_w // w, 2)
+    return resize_bilinear(img, out_h, out_w)
 
 
 # 11-tap Gaussian, matching the reference's separable blur weights

@@ -29,6 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import mathx as mx
+from ..device import resolve_device
+
 MAX_PER_TILE = 1024
 MAX_SPAN_X = 8
 MAX_SPAN_Y = 8
@@ -112,7 +115,7 @@ def _finish_records(cols, valid_mask, two_sided):
         perm[4:8], perm[8:12] = np.arange(8, 12), np.arange(4, 8)
         if C > 13:
             perm[15:17], perm[17:19] = np.arange(17, 19), np.arange(15, 17)
-        perm = torch.as_tensor(perm, device=rec.device)
+        perm = mx.const(perm.tolist(), rec.device, torch.long)
         rec = torch.where((area < 0)[..., None, :], rec[..., perm, :], rec)
         ok = torch.abs(area) > 1e-8
     else:
@@ -144,6 +147,26 @@ def corner_records(c0, c1, c2, valid_mask=None, two_sided: bool = False,
     return _finish_records(cols, valid_mask, two_sided)
 
 
+def expand_corners_record(table, faces, device=None):
+    """Static corner expansion of a host vertex table (V, C) in RECORD
+    order — rows [3t, 3t+1, 3t+2] = (v0, v2, v1) of face t, the order
+    assemble_tri_records gathers — as a tensor on ``device`` (the card
+    unless named). Expanding static geometry once turns the per-frame
+    3T-row corner gather into a reshape."""
+    f = np.asarray(faces)
+    return torch.as_tensor(np.asarray(table)[f[:, [0, 2, 1]].reshape(-1)],
+                           device=resolve_device(device))
+
+
+def expand_corners_major(table, faces, device=None):
+    """Corner-MAJOR expansion — [all v0 | all v1 | all v2] — the order
+    clip_near_records gathers (its per-corner columns are contiguous
+    slices of this layout), as a tensor on ``device``."""
+    f = np.asarray(faces)
+    return torch.as_tensor(np.asarray(table)[f.T.reshape(-1)],
+                           device=resolve_device(device))
+
+
 def assemble_tri_records(sx, sy, z, iw, faces, valid_mask=None,
                          two_sided: bool = False, vextra=None,
                          tid_pack=None, pack_stride: int = ENT_PACK,
@@ -164,7 +187,8 @@ def assemble_tri_records(sx, sy, z, iw, faces, valid_mask=None,
     if pre_expanded:
         corners = vrec.reshape(*vrec.shape[:-2], n_tris, 3 * nc)
     else:
-        idx = faces[:, [0, 2, 1]].reshape(-1).long()
+        f = faces.long()
+        idx = torch.stack([f[:, 0], f[:, 2], f[:, 1]], -1).reshape(-1)
         corners = vrec[..., idx, :].reshape(*vrec.shape[:-2], n_tris, 3 * nc)
     cols = [corners[..., c * nc + i] for c in range(3) for i in range(4)] \
         + [tri_f]
@@ -183,7 +207,8 @@ def clip_near_records(clip_verts, faces, width: int, height: int,
     becomes ≤2 sub-triangles in a static 2T record stream (slot B is
     degenerate unless the quad case hits).
 
-    ``components``: per-corner clip-space columns
+    ``vextra`` (..., V, 3) the per-vertex (or per-corner) extras, shared
+    or per env. ``components``: per-corner clip-space columns
     ``[[x, y, z, w(, nx, ny, nz)] for each face corner]`` of (..., T)
     tensors (the cluster-record path); otherwise corners are gathered from
     ``clip_verts`` (..., V, 4) by ``faces``, (T, 3) shared or (B, T, 3) per
@@ -200,8 +225,9 @@ def clip_near_records(clip_verts, faces, width: int, height: int,
         dev = v[0][0].device
     else:
         T = clip_verts.shape[-2] // 3 if pre_expanded else faces.shape[-2]
-        src = clip_verts if vextra is None else \
-            torch.cat([clip_verts, vextra], dim=-1)
+        src = clip_verts if vextra is None else torch.cat(
+            [clip_verts, vextra.expand(*clip_verts.shape[:-1],
+                                       vextra.shape[-1])], dim=-1)
         NC = src.shape[-1]
         if pre_expanded:
             g = src
@@ -475,8 +501,8 @@ def bin_triangles(rec, ok, width: int, height: int,
     B, T = rec.shape[0], rec.shape[-1]
     mok = ok
 
-    xs = rec[:, list(_XC)]
-    ys = rec[:, list(_YC)]
+    xs = rec[:, _XC[0]:_XC[-1] + 1:4]            # the corners' x rows
+    ys = rec[:, _YC[0]:_YC[-1] + 1:4]
     Tc = T // cluster
 
     def cl_red(v, fill, fn):
@@ -497,8 +523,8 @@ def bin_triangles(rec, ok, width: int, height: int,
         ylo = band_c * band_tiles
         yhi = ylo + band_tiles - 1
     else:
-        ylo = torch.tensor(0, dtype=torch.int32, device=dev)
-        yhi = torch.tensor(nty - 1, dtype=torch.int32, device=dev)
+        ylo = mx.const(0, dev, torch.int32)
+        yhi = mx.const(nty - 1, dev, torch.int32)
     x0 = torch.clamp(torch.floor(txmin / tw).int(), 0, ntx - 1)
     x1 = torch.clamp(torch.floor(txmax / tw).int(), 0, ntx - 1)
     y0 = torch.minimum(torch.maximum(torch.floor(tymin / th).int(), ylo), yhi)

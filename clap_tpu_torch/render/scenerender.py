@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import mathx as mx
 from ..device import resolve_device
 from ..scene.mesh import LOD_MAX, build_lods
 from .pipeline import SceneGeometry
@@ -343,7 +344,7 @@ def _entity_cull_lod(rt: RenderTables, entity_mx, entity_visible,
         in_frustum = in_frustum | skip_culling[None, :]
     dd = wc - cam_pos[:, None, :]
     dist = torch.sqrt(torch.sum(dd * dd, dim=-1))
-    dists = torch.tensor(LOD_DISTANCES, device=dist.device) * lod_scale
+    dists = mx.const(LOD_DISTANCES, dist.device) * lod_scale
     lod = torch.sum(dist[..., None] > dists, dim=-1).to(torch.int32)
     lod = torch.clamp(lod, max=LOD_MAX - 1)
     if rt.ent_max_lod is not None:

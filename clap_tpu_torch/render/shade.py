@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import mathx as mx
 from .lights import LIGHT_TILE, Lights
 from .raster import GBuffer
 
@@ -163,7 +164,7 @@ def shade_pixels(world_pos, normal, view_pos, mat: Material, lights: Lights,
     if shadow_factor is None:
         shadow_factor = torch.ones(world_pos.shape[:3], device=dev)
     if shadow_tint is None:
-        shadow_tint = torch.tensor([0.3, 0.3, 0.4], device=dev)
+        shadow_tint = mx.const([0.3, 0.3, 0.4], dev)
     for li in range(lights.pos.shape[0]):
         to_l = torch.where(lights.is_dir[li], -lights.direction[li],
                            lights.pos[li] - world_pos)
@@ -197,7 +198,7 @@ def _hash3(p):
     """fract(sin(p · (127.1, 311.7, 74.7)) · 43758.5453). The multiply
     turns one ulp of sin into ~3e-3, so two implementations agree only to
     that (and differ by ~1 where fract wraps)."""
-    k = torch.tensor([127.1, 311.7, 74.7], dtype=p.dtype, device=p.device)
+    k = mx.const([127.1, 311.7, 74.7], p.device, p.dtype)
     q = torch.sin(torch.sum(p * k, -1)) * 43758.5453
     return q - torch.floor(q)
 
@@ -209,8 +210,7 @@ def value_noise3(p):
     u = f * f * (3.0 - 2.0 * f)
 
     def corner(dx, dy, dz):
-        return _hash3(i + torch.tensor([dx, dy, dz], dtype=p.dtype,
-                                       device=p.device))
+        return _hash3(i + mx.const([dx, dy, dz], p.device, p.dtype))
 
     ux, uy, uz = u[..., 0], u[..., 1], u[..., 2]
     x00 = corner(0, 0, 0) * (1 - ux) + corner(1, 0, 0) * ux
@@ -254,8 +254,9 @@ def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
     shadow_mvps (B, C, 4, 4) or (C, 4, 4); cascade_dists (C,);
     world_pos (B, H, W, 3), view_depth (B, H, W). Returns (B, H, W)."""
     B = world_pos.shape[0]
-    if moments_maps.dim() == 4:
-        moments_maps = moments_maps[None].expand(B, *moments_maps.shape)
+    shared = moments_maps.dim() == 4       # one atlas, read by every env
+    if shared:
+        moments_maps = moments_maps[None]
     if shadow_mvps.dim() == 3:
         shadow_mvps = shadow_mvps[None].expand(B, *shadow_mvps.shape)
     n_casc = moments_maps.shape[1]
@@ -273,7 +274,7 @@ def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
     s = moments_maps.shape[2]
     u = uv[..., 0] * (s - 1)
     v = (1.0 - uv[..., 1]) * (s - 1)
-    atlas = moments_maps.reshape(B, n_casc * s, s, 2)
+    atlas = moments_maps.reshape(moments_maps.shape[0], n_casc * s, s, 2)
     u = torch.clamp(u, 0.0, s - 1.001)
     v = torch.clamp(v, 0.0, s - 1.001) + casc.float() * s
     u0 = torch.floor(u).long()
@@ -283,9 +284,12 @@ def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
     right = torch.cat([atlas[:, :, 1:], atlas[:, :, -1:]], dim=2)
     down = torch.cat([atlas[:, 1:], atlas[:, -1:]], dim=1)
     down_r = torch.cat([down[:, :, 1:], down[:, :, -1:]], dim=2)
-    quad = torch.cat([atlas, right, down, down_r], dim=-1).reshape(B, -1, 8)
-    idx = (v0 * s + u0).reshape(B, -1, 1).expand(-1, -1, 8)
-    m4 = torch.gather(quad, 1, idx).reshape(*u.shape, 8)
+    quad = torch.cat([atlas, right, down, down_r], dim=-1).reshape(
+        atlas.shape[0], -1, 8)
+    idx = (v0 * s + u0).reshape(B, -1)
+    m4 = quad[0][idx] if shared else torch.gather(
+        quad, 1, idx[..., None].expand(-1, -1, 8))
+    m4 = m4.reshape(*u.shape, 8)
     a, b = m4[..., 0:2], m4[..., 2:4]
     cc, dd = m4[..., 4:6], m4[..., 6:8]
     m = (a * (1 - fu) + b * fu) * (1 - fv) + (cc * (1 - fu) + dd * fu) * fv

@@ -56,15 +56,14 @@ def aabb_in_frustum(planes, aabb_min, aabb_max):
 def frustum_corners_world(view, proj, near_t=0.0, far_t=1.0):
     """8 world-space corners (..., 8, 3) of the [near_t, far_t] NDC-depth
     slice of the frustum (view.c:150-193)."""
-    inv = torch.linalg.inv(proj @ view)
+    inv = torch.linalg.inv_ex(proj @ view).inverse
     dev = view.device
     corners = []
     for z in (near_t * 2 - 1, far_t * 2 - 1):
         for y in (-1.0, 1.0):
             for x in (-1.0, 1.0):
-                corners.append(torch.stack([
-                    torch.as_tensor(v, dtype=torch.float32, device=dev)
-                    for v in (x, y, z, 1.0)]))
+                corners.append(torch.stack([mx.f32(v, dev).reshape(())
+                                            for v in (x, y, z, 1.0)]))
     c = torch.stack(corners)                           # (8, 4)
     w = (inv[..., None, :, :] @ c[..., None])[..., 0]   # (..., 8, 4)
     return w[..., :3] / w[..., 3:4]
@@ -79,20 +78,19 @@ def cascade_subviews(cam_view, cam_proj, light_dir, near, far,
     dev = cam_view.device
     splits = list(CASCADE_SPLITS) + [None]
     dists, views, projs = [], [], []
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    up = mx.const([0.0, 1.0, 0.0], dev)
     ldir = mx.normalize(light_dir)
-    e2 = torch.tensor([0.0, 0.0, -1.0, 0.0], device=dev)
-    e3 = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    e2 = mx.const([0.0, 0.0, -1.0, 0.0], dev)
+    e3 = mx.const([0.0, 0.0, 0.0, 1.0], dev)
 
     def ndc_t(dist):
         p = (cam_proj @ e2) * dist + cam_proj @ e3
         return (p[2] / p[3] + 1.0) * 0.5
 
     for i in range(CASCADES_MAX):
-        d1 = torch.tensor(splits[i] if splits[i] is not None else far,
-                          dtype=torch.float32, device=dev)
+        d1 = mx.const(splits[i] if splits[i] is not None else far, dev)
         d1 = torch.clamp(d1, max=far)
-        t0 = torch.tensor(0.0, device=dev) if i == 0 \
+        t0 = mx.const(0.0, dev) if i == 0 \
             else ndc_t(dists[-1] + 1e-4)
         corners = frustum_corners_world(cam_view, cam_proj, t0, ndc_t(d1))
         center = corners.mean(dim=-2)
@@ -120,16 +118,15 @@ def bounds_light_subview(aabb_min, aabb_max, light_dir, far: float = 1e4,
 
     Returns (Subview with a leading cascade axis of 1, cascade_dists (1,))."""
     dev = light_dir.device
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    up = mx.const([0.0, 1.0, 0.0], dev)
     ldir = mx.normalize(light_dir)
     mn = aabb_min.float()
     mxx = aabb_max.float()
     center = 0.5 * (mn + mxx)
     eye = center - ldir * 1.0
     lview = mx.mat4_look_at_safe(eye, center, up)
-    corners = torch.tensor([[x, y, z] for x in (0, 1) for y in (0, 1)
-                            for z in (0, 1)], dtype=torch.float32,
-                           device=dev)
+    corners = mx.const([[x, y, z] for x in (0, 1) for y in (0, 1)
+                        for z in (0, 1)], dev)
     wc = mn[None, :] + corners * (mxx - mn)[None, :]
     lc = mx.mat4_transform_point(lview, wc)
     lctr = 0.5 * (lc.amin(dim=0) + lc.amax(dim=0))
@@ -142,4 +139,4 @@ def bounds_light_subview(aabb_min, aabb_max, light_dir, far: float = 1e4,
     sv = make_subview(lview, proj)
     return (Subview(view=sv.view[None], proj=sv.proj[None],
                     planes=sv.planes[None]),
-            torch.tensor([far], dtype=torch.float32, device=dev))
+            mx.const([far], dev))

@@ -19,7 +19,7 @@ from ..bridge import tree_map
 from ..char.controller import CharParams
 from ..device import resolve_device
 from ..engine.state import (EngineState, EntityParams, SceneConfig,
-                            engine_state_init)
+                            engine_state_init, scene_host)
 from ..physics.heightfield import heightfield_from_terrain
 from ..physics.narrowphase import make_world
 from ..physics.world import BodyParams, capsule_auto_size, capsule_inertia_np
@@ -108,6 +108,10 @@ def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
     def dev(a):
         return torch.as_tensor(a, device=device)
 
+    host_bodies = BodyParams(
+        active=active, kinematic=kinematic, radius=radius,
+        half_len=half_len, yoffset=yoffset, ray_off=ray_off, mass=mass,
+        bounce=bounce, bounce_vel=bounce_vel, mu=mu)
     bodies = BodyParams(
         active=dev(active), kinematic=dev(kinematic), radius=dev(radius),
         half_len=dev(half_len), yoffset=dev(yoffset), ray_off=dev(ray_off),
@@ -180,7 +184,8 @@ def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
     cfg = SceneConfig(
         world=world, bodies=bodies, entities=ent, char_params=char_params,
         model_aabb=dev(np.array(aabb_rows, f32)),
-        limbo_height=dev(np.float32(40.0)), gravity_y=dev(np.float32(-9.8)))
+        limbo_height=dev(np.float32(40.0)), gravity_y=dev(np.float32(-9.8)),
+        host=scene_host(host_bodies, np.arange(n_chars)))
 
     st = engine_state_init(E, n_bodies, n_chars, "cpu")   # host, then moved
     for ci in range(n_chars):

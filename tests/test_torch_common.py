@@ -12,7 +12,7 @@ import torch
 
 import jax
 
-from clap_tpu_torch.bridge import from_numpy, to_numpy
+from clap_tpu_torch.bridge import _PORT_ONLY, from_numpy, to_numpy
 
 # xdist runs several workers on a few cores: one torch thread each
 torch.set_num_threads(1)
@@ -34,6 +34,15 @@ def to_port(tree, device="cpu"):
     return from_numpy(jnp_tree(tree), device)
 
 
+def _fields_match(ref, got, path):
+    """The JAX package's fields lead the port type's; what follows them is
+    the port's host-side fields (bridge._PORT_ONLY)."""
+    n = len(ref._fields)
+    assert tuple(ref._fields) == tuple(got._fields[:n]), path
+    assert all((type(got).__name__, f) in _PORT_ONLY
+               for f in got._fields[n:]), path
+
+
 def assert_tree_close(ref, got, atol=1e-4, rtol=1e-4, path="tree"):
     """Field-by-field comparison of a JAX-package tree (numpy leaves; plain
     tuples element by element) and a port tree: int/bool leaves exact,
@@ -42,7 +51,7 @@ def assert_tree_close(ref, got, atol=1e-4, rtol=1e-4, path="tree"):
         assert got is None, path
         return
     if hasattr(ref, "_fields"):
-        assert tuple(ref._fields) == tuple(got._fields), path
+        _fields_match(ref, got, path)
         for f, a, b in zip(ref._fields, ref, got):
             assert_tree_close(a, b, atol, rtol, f"{path}.{f}")
         return
@@ -67,7 +76,7 @@ def assert_tree_equal(ref, got, path="tree"):
         assert got is None, path
         return
     if hasattr(ref, "_fields"):
-        assert tuple(ref._fields) == tuple(got._fields), path
+        _fields_match(ref, got, path)
         for f, a, b in zip(ref._fields, ref, got):
             assert_tree_equal(a, b, f"{path}.{f}")
         return

@@ -254,6 +254,148 @@ def test_kernel_bit_exact_on_frame_inputs_on_card(frame_inputs, path, ncol,
         assert torch.equal(a, b)
 
 
+@pytest.fixture(scope="module")
+def bench_scene_inputs():
+    """K1/K2 inputs of the JAX bench's single-frame and shared-scene
+    configurations (chip_smoke.py's builders): the dense 720p frame's
+    19-column records built from its corner stream, the 22-column extras
+    records of the batched terrain built from faces and normals
+    (``vextra``, 4 views × 256²), and the production scene's 2,048² static
+    bake. Skips without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest "
+                    "tests/test_torch_cuda.py -m cuda --noconftest)")
+    import chip_smoke as CS
+    from clap_tpu_torch.render import pipeline as P
+    from clap_tpu_torch.render.scenerender import static_shadow_geometry
+
+    dev = torch.device("cuda", 0)
+    w = CS.build_full_frame(dev, nr_v=240, n_cubes=256, raster_cap=4096)
+    g = w["geom"]
+    clip = P.clip_transform(g.corner_verts, w["view"], w["proj"])
+    rec, binned = P.gather_records(w["opts"], g, clip)[:2]
+    out = {"full_frame_dense": R.kernel_inputs(rec, binned, 1280, 720)}
+    b = CS.build_batched(dev, n_envs=4, res=256)
+    gb = P.per_env(b["geom"], 4)
+    rec, binned, _ = P.surface_records(
+        b["opts"], gb, P.clip_transform(gb.verts, b["views"], b["proj"]))
+    out["batched_vextra"] = R.kernel_inputs(rec, binned, 256, 256)
+    p = CS.build_production(dev, bake_size=256)
+    sg, sv, _ = static_shadow_geometry(p["rt"], p["mx0"],
+                                       p["lights"].direction[0])
+    srec, sbin, dims = P.shadow_records(P.RenderOptions(shadow_size=2048),
+                                        sg, sv.view[None], sv.proj[None])
+    out["bake_2048"] = R.kernel_inputs(srec, sbin, *dims, depth_only=True)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,ncol", [("full_frame_dense", 24),
+                                       ("batched_vextra", 24),
+                                       ("bake_2048", 16)])
+def test_kernel_bit_exact_on_bench_scenes_on_card(bench_scene_inputs, path,
+                                                  ncol):
+    """K1 on the corner-stream 720p frame and on member-geometry extras
+    records, K2 on a 2,048² bake: bit-exact against the plain versions."""
+    args = bench_scene_inputs[path]
+    assert args[0].shape[-1] == 8 * ncol and args[0].is_cuda
+    kernel, plain = (R.raster_depth, R.raster_depth_ref) if ncol == 16 \
+        else (R.raster_tile, R.raster_tile_ref)
+    before = kernel.launches
+    k = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    r = plain(*args)
+    k, r = (k, r) if isinstance(k, tuple) else ((k,), (r,))
+    assert bool(torch.isfinite(r[0]).any())
+    for a, b in zip(k, r):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_engine_step_no_host_sync_on_card(cuda_device):
+    """engine_step at 64 envs (two characters, camera occlusion) makes no
+    synchronizing CUDA call after its first: the body flags and character
+    slots are host facts of the scene (SceneConfig.host)."""
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.engine.step import engine_step, inputs_zero
+    from clap_tpu_torch.scene import testbed as tbm
+
+    tb = tbm.build_testbed(seed=42, side=64.0, nr_v=128, n_dynamic=8,
+                           max_entities=96, n_chars=2, terrain_chunks=4,
+                           device=cuda_device)
+    st = tbm.replicate_state(tb.state0, 64)
+    ins = tree_map(lambda x: x.expand(64, *x.shape).clone(),
+                   inputs_zero(2, device=cuda_device))
+    ins.motion[:, 0, 0] = 1.0
+    st = engine_step(tb.cfg, st, ins, camera_occlusion=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st = engine_step(tb.cfg, st, ins, camera_occlusion=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool((st.frame == 4).all())
+    assert bool(torch.isfinite(st.phys.pos).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["full_frame", "production", "batched",
+                                  "flagship_render", "flagship_half_res"])
+def test_render_no_host_sync_on_card(cuda_device, path):
+    """A frame of each render path makes no synchronizing CUDA call after
+    its first (sync-debug "error"): fixed values are cached constants, the
+    inverses skip their singularity check."""
+    import dataclasses
+
+    import chip_smoke as CS
+    from clap_tpu_torch.render.pipeline import (render_frame,
+                                                render_frame_batch)
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    dev = cuda_device
+    if path == "full_frame":
+        w = CS.build_full_frame(dev)
+
+        def frame():
+            return render_frame(w["opts"], w["geom"], w["view"], w["proj"],
+                                w["lights"], w["eye"])
+    elif path == "production":
+        w = CS.build_production(dev, bake_size=512)
+
+        def frame():
+            return CS.production_frame(w, w["eye"])
+    elif path == "batched":
+        w = CS.build_batched(dev, 8, 256)
+
+        def frame():
+            return render_frame_batch(w["opts"], w["geom"], w["views"],
+                                      w["proj"], w["lights"], w["eyes"],
+                                      far=100.0)
+    else:
+        w = CS.build_slice(dev, 4)
+        if path == "flagship_half_res":
+            w["opts"] = dataclasses.replace(w["opts"], internal_scale=2)
+        static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                    w["lights"].direction[0],
+                                    shadow_size=1024, far=200.0)
+        renderer = CS.make_renderer(w, static)
+
+        def frame():
+            return renderer(w["gs"].engine, w["gs"].joint_mats)
+    img = frame()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img2 = frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(img, img2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,steps", CA_SHAPES,
                          ids=lambda v: "x".join(map(str, v))

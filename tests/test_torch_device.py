@@ -16,6 +16,8 @@ from clap_tpu_torch.engine.state import engine_state_init
 from clap_tpu_torch.engine.step import Inputs, inputs_zero
 from clap_tpu_torch.ops.ca2d import CA_TEST, ca2d_seed
 from clap_tpu_torch.render.lights import lights_empty
+from clap_tpu_torch.render.raster import (expand_corners_major,
+                                          expand_corners_record)
 from clap_tpu_torch.render.scenerender import build_render_tables
 from clap_tpu_torch.render.texture import upload_texture
 from clap_tpu_torch.scene import testbed as ttb
@@ -50,6 +52,12 @@ def _char_skin_on_default_device():
     return ttb.build_testbed_char_skin(tb, models, rt)
 
 
+def _chip_smoke():
+    import chip_smoke
+
+    return chip_smoke
+
+
 _KEYS = np.linspace(0.0, 1.0, 4).astype(np.float32)
 _Q = np.tile(np.array([0, 0, 0, 1], np.float32), (4, 1))
 
@@ -76,6 +84,13 @@ BUILDERS = {
     "testbed_textures": ttb.testbed_textures,
     "upload_texture": lambda: upload_texture(np.zeros((2, 2, 4), np.uint8)),
     "build_char_skin": _char_skin_on_default_device,
+    "expand_corners_record": lambda: expand_corners_record(
+        np.zeros((3, 3), np.float32), np.array([[0, 1, 2]])),
+    "expand_corners_major": lambda: expand_corners_major(
+        np.zeros((3, 3), np.float32), np.array([[0, 1, 2]])),
+    "build_full_frame": lambda: _chip_smoke().build_full_frame(
+        None, nr_v=12, width=64, height=48),
+    "build_batched": lambda: _chip_smoke().build_batched(None, 2, 32),
     "from_numpy": lambda: from_numpy(Inputs(
         motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
         cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),

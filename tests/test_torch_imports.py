@@ -46,8 +46,30 @@ def test_skinned_and_textured_modules_import_no_jax(module):
     assert r.returncode == 0, r.stderr
 
 
+@pytest.mark.parametrize("module", ["clap_tpu_torch.render.post",
+                                    "clap_tpu_torch.render.pipeline",
+                                    "clap_tpu_torch.render.raster",
+                                    "clap_tpu_torch.physics.world",
+                                    "clap_tpu_torch.engine.state",
+                                    "clap_tpu_torch.bridge"])
+def test_frame_batch_and_host_flag_modules_import_no_jax(module):
+    """The modules of the corner streams, the shared-scene batch, the
+    bilinear upsample and the host-side body flags, each on its own."""
+    test_skinned_and_textured_modules_import_no_jax(module)
+
+
 def test_chip_smoke_imports_no_jax():
     src = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|clap_tpu)\b", src,
+                         re.MULTILINE)
+
+
+@pytest.mark.parametrize("script", ["tools/torch_profile_frame.py",
+                                    "tools/torch_raster_ab.py",
+                                    "tools/torch_ca2d_ab.py"])
+def test_card_tools_import_no_jax(script):
+    """The tools that run on the card (which has no JAX)."""
+    src = (REPO / script).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|clap_tpu)\b", src,
                          re.MULTILINE)
 

@@ -3,7 +3,8 @@
 shadow_pass_all (the per-env 4-cascade atlas), the kernel-attrs G-buffer
 and render_frame_dynamic_batch. Bars: atlas depth within 1e-4 on
 >= 99.5 % of texels, G-buffer tid agreement >= 99.5 % per env, LDR PSNR
->= 35 dB per env."""
+>= 35 dB per env. Film grain noise and a LUT volume change nothing while
+their options are off, as in the JAX package."""
 from functools import partial
 
 import numpy as np
@@ -71,18 +72,23 @@ def jax_views(cam, proj):
     return views, jax.vmap(lambda v: jview.make_subview(v, proj).planes)(views)
 
 
-@pytest.fixture(scope="module")
-def rendered():
-    J, T, jrt, trt, jl, tl = composed_scene()
-    # two envs that differ: env 1's bodies shifted, its camera turned;
-    # entity matrices and the camera refresh as in engine_step
+def rendered_state(J):
+    """Two envs of the JAX package's testbed that differ: env 1's bodies
+    shifted, its camera turned; entity matrices and the camera refresh as
+    in engine_step."""
     st = jtb.replicate_state(J.state0, B)
     st = st._replace(
         phys=st.phys._replace(pos=st.phys.pos.at[1, :, 0].add(0.35)),
         camera=st.camera._replace(yaw=st.camera.yaw.at[1].add(0.4)))
     st = jax.vmap(partial(jstep._scene_update, J.cfg))(st)
-    st = jax.vmap(lambda s: jstep._camera_update(
+    return jax.vmap(lambda s: jstep._camera_update(
         J.cfg, s, jstep.inputs_zero(2), camera_occlusion=True))(st)
+
+
+@pytest.fixture(scope="module")
+def rendered():
+    J, T, jrt, trt, jl, tl = composed_scene()
+    st = rendered_state(J)
     jss = jsr.bake_static_shadow(jrt, J.state0.mx, jl.direction[0],
                                  shadow_size=128, far=200.0)
     tss = tsr.bake_static_shadow(trt, T.state0.mx, tl.direction[0],
@@ -127,7 +133,15 @@ def rendered():
     gb = tpl._surface_kernel_attrs(topts, geom)[0]
     got = [sm.numpy(), gb.tri_id.numpy(), gb.depth.numpy(),
            renderer(ts).numpy()]
-    return (jss, tss), ref, got
+    # the frame again, handed film grain noise and a LUT volume while
+    # their options are off: the JAX package reads neither then
+    rng = np.random.default_rng(5)
+    off = tpl.render_frame_dynamic_batch(
+        topts, geom, views, renderer.proj, tl, ts.camera.pos, far=200.0,
+        static_shadow=tss,
+        grain_noise=torch.as_tensor(rng.uniform(size=(B, RES, RES, 3))),
+        lut_volume=torch.as_tensor(rng.uniform(size=(16, 16, 16, 3))))
+    return (jss, tss), ref, got + [off.numpy()]
 
 
 def test_bake_static_shadow(rendered):
@@ -174,10 +188,24 @@ def test_unported_options_raise(rendered):
     import dataclasses
 
     opts = tpl.RenderOptions(**OPTS)
-    for kw in (dict(internal_scale=2), dict(model_msaa=2),
+    for kw in (dict(edge_sobel=False), dict(model_msaa=2),
                dict(ssao_mode="kernel"), dict(fog_noise=True),
                dict(lighting_lut=True)):
         with pytest.raises(NotImplementedError):
             tpl.render_frame(dataclasses.replace(opts, **kw), None,
                              torch.eye(4)[None], torch.eye(4), None,
                              torch.zeros(1, 3))
+
+
+def test_grain_and_lut_unread_while_off(rendered):
+    """grain_noise and lut_volume with film_grain 0 and lighting_lut off:
+    the frame is the one rendered without them."""
+    _, _, got = rendered
+    assert np.array_equal(got[3], got[4])
+
+
+def test_film_grain_raises_when_on():
+    with pytest.raises(NotImplementedError, match="film grain"):
+        tpl.render_frame(tpl.RenderOptions(**{**OPTS, "film_grain": 0.03}),
+                         None, torch.eye(4)[None], torch.eye(4), None,
+                         torch.zeros(1, 3), grain_noise=torch.zeros(1))

@@ -3,13 +3,17 @@
 
     python3 tools/torch_profile_frame.py [--frames N] [--top K]
 
-For each of chip_smoke.py's two composed worlds at 64 envs × 256², the
-skinned flagship (phase 5) and the textured frame on the per-pixel gather
-path (phase 8), after a warm-up (the static shadow bake and 2 frames),
-three windows of N calls each: ``step_and_render``, ``game_step`` alone,
-and the render alone (``SceneRenderer`` on the last state). Each window is
-timed unprofiled (host clock around synchronised work), then run again
-under the profiler. Prints per window the wall ms per call, the device busy
+For each of chip_smoke.py's composed worlds at 64 envs × 256², the
+skinned flagship (phase 5), the textured frame on the per-pixel gather
+path (phase 8) and the flagship at internal_scale 2 (phase 12), after a
+warm-up (the static shadow bake and 2 frames), three windows of N calls
+each: ``step_and_render``, ``game_step`` alone, and the render alone
+(``SceneRenderer`` on the last state); then one window of the render of
+each of the JAX bench's single-frame and shared-scene configurations
+(phases 9-11: ``full_frame`` and ``full_frame_dense`` at 720p,
+``full_frame_production`` at 720p, ``batched_render`` 64 × 256²), after 2
+warm-up calls. Each window is timed unprofiled (host clock around
+synchronised work), then run again under the profiler. Prints per window the wall ms per call, the device busy
 ms per call (the summed time of every kernel, copy and fill on the card),
 its share of the unprofiled wall time, the kernels per call, and the K
 heaviest kernels by device time. Then the card (nvidia-smi name and power
@@ -86,9 +90,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_frame: no CUDA device", file=sys.stderr)
         return 2
+    import dataclasses
+
     import chip_smoke as CS
     from clap_tpu_torch.engine.frame import step_and_render
     from clap_tpu_torch.engine.game import game_step
+    from clap_tpu_torch.render.pipeline import (render_frame,
+                                                render_frame_batch)
     from clap_tpu_torch.render.scenerender import bake_static_shadow
 
     dev = torch.device("cuda", 0)
@@ -102,9 +110,11 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0].strip()
     print(f"card: {card}", flush=True)
     res = {"card": card, "frames": a.frames}
-    for tag, textured in (("skinned flagship", False),
-                          ("textured frame", True)):
+    for tag, textured, scale in (("skinned flagship", False, 1),
+                                 ("textured frame", True, 1),
+                                 ("flagship at internal_scale 2", False, 2)):
         w = CS.build_slice(dev, textured=textured)
+        w["opts"] = dataclasses.replace(w["opts"], internal_scale=scale)
         static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
                                     w["lights"].direction[0],
                                     shadow_size=1024, far=200.0)
@@ -130,6 +140,35 @@ def main() -> int:
                          ("render", render)):
             window(f"{tag} {name}", fn, a.frames, a.top, res)
         del w, renderer, box, static
+        torch.cuda.empty_cache()
+
+    def full_frame(**kw):
+        w = CS.build_full_frame(dev, **kw)
+        return lambda: render_frame(w["opts"], w["geom"], w["view"],
+                                    w["proj"], w["lights"], w["eye"])
+
+    def production():
+        w = CS.build_production(dev)
+        return lambda: CS.production_frame(w, w["eye"])
+
+    def batched():
+        w = CS.build_batched(dev, CS.N_SLICE, CS.RES)
+        return lambda: render_frame_batch(w["opts"], w["geom"], w["views"],
+                                          w["proj"], w["lights"], w["eyes"],
+                                          far=100.0)
+
+    for tag, make in (
+            ("full_frame 720p", lambda: full_frame()),
+            ("full_frame_dense 720p", lambda: full_frame(
+                nr_v=240, n_cubes=256, raster_cap=4096)),
+            ("full_frame_production 720p", production),
+            (f"batched_render {CS.N_SLICE} x {CS.RES}^2", batched)):
+        fn = make()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        window(tag, fn, a.frames, a.top, res)
+        del fn
         torch.cuda.empty_cache()
     print(card, flush=True)
     print(json.dumps(res))
