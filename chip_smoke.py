@@ -60,26 +60,29 @@ Phases, one or more lines each:
    streams. 1 warm-up + 5 frames, wall ms and device busy ms
    (torch.profiler; median and range), peak memory, tiles at capacity,
    the image checks (finite, std > 0.01, a nudged camera changes the
-   image); K1 and K2 bit-exact on the dense
+   image); K1 and K2 bit-exact on each
    frame's records and cascade atlas, timed beside their plain versions
    with input preparation and bounds; the default frame against the plain
    CPU path (PSNR >= 35 dB).
 10. production — ``full_frame_production`` (bench.py:281-420): the dense
     scene as render tables, kernel_attrs, cluster records (cap 81,920),
     the terrain baked once into a 2,048² atlas (cold and warm ms): frames
-    as phase 9, clusters at the cap; K1 (extras, 720p) and K2 (the bake)
-    bit-exact, timed, bounded.
+    as phase 9, clusters at the cap; K1 (extras, 720p) and K2 (the bake
+    and the frame's 4 × 512² cascade atlas) bit-exact, timed, bounded.
 11. batched — ``batched_render`` (bench.py:423-497): 64 views × 256² of
     one shared terrain, kernel_attrs over member geometry,
-    ``render_frame_batch`` with one shared light atlas (one K2 launch per
-    batch, required): ms per batch, frames/s, img_std, peak memory; K1 on
-    extras records built from faces and normals and K2 on the shared atlas
-    bit-exact, timed, bounded.
+    ``render_frame_batch`` with one shared light atlas (required: one K2
+    launch per batch, on one (1, 256, 256) atlas, bit-exact on the inputs
+    the batch gave it): ms per batch, frames/s, img_std, peak memory; K1
+    on extras records built from faces and normals and K2 on the shared
+    atlas bit-exact, timed, bounded.
 12. shading rate — ``shading_rate`` (bench.py:739-755, 879-884): the
     skinned flagship at 8 envs at internal_scale 2 against 1 from one
     state (PSNR printed; the image has the full shape, is finite and is
     not the full-resolution frame), then 64 envs at internal_scale 2
-    driven as phase 5: ms/frame, env-fps, wall and device ms.
+    driven as phase 5: ms/frame, env-fps, wall and device ms; K1 on the
+    internal 128² extras records and K2 on the cascade atlas of the last
+    frame bit-exact, timed, bounded.
 
 Each new path's kernel launches are counted from 0 over its driven run.
 
@@ -348,29 +351,30 @@ def main() -> int:
     ff = run_full_frame_phase(dev, smi, require, check_tile, check_depth)
     prod = run_production_phase(dev, smi, require, check_tile, check_depth)
     bat = run_batched_phase(dev, smi, require, check_tile, check_depth)
-    rate = run_shading_rate_phase(dev, smi, sync, require)
+    rate = run_shading_rate_phase(dev, smi, sync, require, check_tile,
+                                  check_depth)
 
-    def fields(prefix, path, k):
-        """A path's launches and its kernel numbers as extra fields."""
-        f = {f"{prefix}_launches": path["launches"][k]}
-        rep = path.get("k1" if k == "raster_tile" else "k2")
-        if rep is not None:
-            f.update({f"{prefix}_max_abs_err": rep["max_abs_err"],
-                      f"{prefix}_ms": rep["ms"],
-                      f"{prefix}_plain_ms": rep["plain_ms"],
-                      f"{prefix}_bound_ms": rep["bound"][0],
-                      f"{prefix}_bound_by": rep["bound"][1]})
+    def fields(prefix, launches, rep):
+        """A path's launches and one kernel report as extra fields."""
+        f = {} if launches is None else {f"{prefix}_launches": launches}
+        f.update({f"{prefix}_max_abs_err": rep["max_abs_err"],
+                  f"{prefix}_ms": rep["ms"],
+                  f"{prefix}_plain_ms": rep["plain_ms"],
+                  f"{prefix}_bound_ms": rep["bound"][0],
+                  f"{prefix}_bound_by": rep["bound"][1]})
         return f
 
     def paths(k):
+        rep = "k1" if k == "raster_tile" else "k2"
         f = {}
         for prefix, path in (("full_frame", ff["full_frame"]),
-                             ("full_frame_dense",
-                              dict(ff["full_frame_dense"], k1=ff["k1"],
-                                   k2=ff["k2"])),
+                             ("full_frame_dense", ff["full_frame_dense"]),
                              ("production", prod), ("batched", bat),
                              ("shading_rate", rate)):
-            f.update(fields(prefix, path, k))
+            f.update(fields(prefix, path["launches"][k], path[rep]))
+        if k == "raster_depth":       # the production frame's own atlas
+            f.update(fields("production_cascade", None,
+                            prod["k2_cascade"]))
         return f
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
@@ -830,18 +834,18 @@ def cpu_psnr(w, d):
     return [10 * math.log10(1.0 / max(float(m), 1e-12)) for m in mse]
 
 
-def frame_records(renderer, st, joint_mats=None):
+def frame_records(renderer, st, joint_mats=None, opts=None):
     """The records and bins of state ``st``'s main pass (22-column extras
     records on the kernel-attrs path, 19-column barycentric records on the
-    gather path) and cascade atlas: (geometry, rec, binned, srec, sbin, (w,
-    h, th, tw))."""
+    gather path) and cascade atlas, under ``opts`` (default the
+    renderer's): (geometry, rec, binned, srec, sbin, (w, h, th, tw))."""
     from clap_tpu_torch.render.pipeline import (clip_transform,
                                                 gather_records,
                                                 shadow_records,
                                                 surface_records)
     from clap_tpu_torch.render.view import cascade_subviews
 
-    opts = renderer.opts
+    opts = opts or renderer.opts
     views = renderer.views(st)
     geom = renderer.geometry(st, views, joint_mats)
     if renderer.cluster_records:
@@ -1043,8 +1047,8 @@ def run_full_frame_phase(dev, smi, require, check_tile, check_depth,
     one (nr_v 240, 256 cubes, raster_cap 4096), both with corner-expanded
     static streams: 1 warm-up + ``reps`` frames, wall and device ms, peak
     memory, binning saturation, the image checks; K1 and K2 bit-exact on
-    the dense frame's records and atlas with times and bounds; the default
-    frame against the plain CPU path."""
+    each frame's records and cascade atlas with times and bounds; the
+    default frame against the plain CPU path."""
     import torch
 
     from clap_tpu_torch.bridge import tree_map
@@ -1091,8 +1095,21 @@ def run_full_frame_phase(dev, smi, require, check_tile, check_depth,
             f" of {bs['cap']} records), image std {std:.4f}, input-dependent "
             f"True; launches in the driven run ({driven_run(reps)}) "
             f"{launches} ({smi})")
+        clip = clip_transform(geom.corner_verts, w["view"], proj)
+        rec, binned = gather_records(opts, geom, clip)[:2]
+        k1 = kernel_report(
+            "phase 9", f"{name} 720p records from the corner stream "
+            f"({rec.shape[-1]} records)", check_tile, rec, binned,
+            (opts.width, opts.height), False, smi)
+        casc, _ = cascade_subviews(w["view"], proj, lights.direction[0],
+                                   0.1, 200.0)
+        srec, sbin, dims = shadow_records(opts, geom, casc.view, casc.proj)
+        k2 = kernel_report(
+            "phase 9", f"{name} cascade atlas {dims[1]}x{dims[0]}",
+            check_depth, srec, sbin, dims, True, smi)
         out[name] = dict(launches=launches, wall=wall, device=devt,
-                         tris=T, tiles_at_cap=bs["tiles_at_cap"])
+                         tris=T, tiles_at_cap=bs["tiles_at_cap"], k1=k1,
+                         k2=k2)
         if name == "full_frame":
             cpu = tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x,
                            (geom, w["view"], proj, lights, w["eye"]))
@@ -1102,21 +1119,7 @@ def run_full_frame_phase(dev, smi, require, check_tile, check_depth,
             log(f"phase 9 {name} end-to-end: the 720p CUDA frame vs the "
                 f"plain CPU path PSNR {p:.1f} dB")
             require(p >= 35.0, "full_frame 720p PSNR >= 35 dB vs the CPU")
-        else:
-            clip = clip_transform(geom.corner_verts, w["view"], proj)
-            rec, binned = gather_records(opts, geom, clip)[:2]
-            out["k1"] = kernel_report(
-                "phase 9", f"{name} 720p records from the corner stream "
-                f"({rec.shape[-1]} records)", check_tile, rec, binned,
-                (opts.width, opts.height), False, smi)
-            casc, _ = cascade_subviews(w["view"], proj,
-                                       lights.direction[0], 0.1, 200.0)
-            srec, sbin, dims = shadow_records(opts, geom, casc.view,
-                                              casc.proj)
-            out["k2"] = kernel_report(
-                "phase 9", f"{name} cascade atlas {dims[1]}x{dims[0]}",
-                check_depth, srec, sbin, dims, True, smi)
-        del w, geom, img0, img1
+        del w, geom, img0, img1, rec, binned, srec, sbin
         torch.cuda.empty_cache()
     return out
 
@@ -1128,7 +1131,8 @@ def run_production_phase(dev, smi, require, check_tile, check_depth,
     cluster records with cap 81,920, the terrain baked once into a 2,048²
     atlas, 1280 × 720: the bake cold and warm, 1 warm-up + ``reps``
     frames, the image checks, clusters at the cap; K1 (extras, 720p) and
-    K2 (the 2,048² bake) bit-exact with times and bounds."""
+    K2 (the 2,048² bake and the frame's 4 × 512² cascade atlas) bit-exact
+    with times and bounds."""
     import torch
 
     from clap_tpu_torch.render import raster as R
@@ -1137,6 +1141,7 @@ def run_production_phase(dev, smi, require, check_tile, check_depth,
                                                 surface_records)
     from clap_tpu_torch.render.scenerender import (bake_static_shadow,
                                                    static_shadow_geometry)
+    from clap_tpu_torch.render.view import cascade_subviews
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1160,7 +1165,7 @@ def run_production_phase(dev, smi, require, check_tile, check_depth,
     img1 = production_frame(w, w["eye"] + torch.tensor([[0.5, 0.0, 0.0]],
                                                        device=dev))
     std, _ = image_checks("phase 10 production", require, img0, img1)
-    geom, _views = production_geometry(w, w["eye"])
+    geom, views = production_geometry(w, w["eye"])
     nval = int(geom.comp_valid.sum()) // R.CLUSTER
     at_cap = nval >= w["cap"] // R.CLUSTER
     rt = w["rt"]
@@ -1186,9 +1191,18 @@ def run_production_phase(dev, smi, require, check_tile, check_depth,
     k2 = kernel_report("phase 10", f"production static bake "
                        f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
                        True, smi)
+    # the per-frame atlas: the frame's own cascades over the dynamic
+    # casters (render_frame's far 200)
+    casc, _ = cascade_subviews(views, w["proj"], w["lights"].direction[0],
+                               0.1, 200.0)
+    srec, sbin, dims = shadow_records(opts, geom, casc.view, casc.proj)
+    k2c = kernel_report("phase 10", f"production cascade atlas "
+                        f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
+                        True, smi)
     del w, geom, img0, img1, rec, srec
     torch.cuda.empty_cache()
-    return dict(launches=launches, wall=wall, device=devt, k1=k1, k2=k2)
+    return dict(launches=launches, wall=wall, device=devt, k1=k1, k2=k2,
+                k2_cascade=k2c)
 
 
 def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
@@ -1196,10 +1210,13 @@ def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
     views × 256² of one shared terrain, kernel_attrs over member geometry,
     ``render_frame_batch`` with one shared light atlas: 1 warm-up +
     ``reps`` batches, wall and device ms, frames/s, peak memory; the shadow
-    pass launched once per batch; K1 (extras records built from faces and
-    normals) and K2 (the shared atlas) bit-exact with times and bounds."""
+    pass launched once per batch on one (1, S, S) atlas, bit-exact on the
+    inputs the first batch gave it; K1 (extras records built from faces
+    and normals) and K2 (the shared atlas) bit-exact with times and
+    bounds."""
     import torch
 
+    from clap_tpu_torch.render import raster as R
     from clap_tpu_torch.render.pipeline import (clip_transform, per_env,
                                                 render_frame_batch,
                                                 shadow_records,
@@ -1210,16 +1227,38 @@ def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
     require(w["opts"].kernel_attrs, "batched terrain is kernel_attrs "
             "eligible")
     geom, opts = w["geom"], w["opts"]
-    n, res = w["eyes"].shape[0], opts.width
+    n, res, S = w["eyes"].shape[0], opts.width, opts.shadow_size
 
     def frame():
         return render_frame_batch(opts, geom, w["views"], w["proj"],
                                   w["lights"], w["eyes"], far=100.0)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    img = frame()
+    class Seen:
+        """K2's wrapper, keeping the arguments of each call; its count is
+        the wrapper's own (the wrapper adds to ``raster_depth.launches``,
+        which this name stands for while it is in place)."""
+
+        def __init__(self, fn):
+            self.fn, self.calls = fn, []
+
+        launches = property(lambda s: s.fn.launches,
+                            lambda s, v: setattr(s.fn, "launches", v))
+
+        def __call__(self, *args):
+            self.calls.append(args)
+            return self.fn(*args)
+
+    # K2's inputs in the first batch: the atlas the batch hands on
+    k2 = R.raster_depth
+    seen = R.raster_depth = Seen(k2)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        img = frame()
+    finally:
+        R.raster_depth = k2
+    depth_calls = seen.calls
     torch.cuda.synchronize()
     one = read_launches()
     wall, devt = frame_times(frame, reps)
@@ -1227,6 +1266,12 @@ def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
     peak = torch.cuda.max_memory_allocated()
     require(one == {"raster_tile": 1, "raster_depth": 1},
             f"one K1 and one K2 launch per batch (the shared atlas): {one}")
+    atlas = [(a[0].shape[0], a[5], a[4]) for a in depth_calls]
+    require(atlas == [(1, S, S)], f"the batch's K2 launch renders one "
+            f"shared {S}x{S} atlas, not one per view: (B, H, W) {atlas}")
+    check_depth(f"batched shared atlas {S}x{S} as the first batch gave it",
+                depth_calls[0])
+    del depth_calls, seen
     img_std = float(img.std())
     require(bool(torch.isfinite(img).all()), "batched images finite")
     require(img_std > 0.01, "batched img_std > 0.01")
@@ -1257,12 +1302,15 @@ def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
                 k1=k1, k2=k2)
 
 
-def run_shading_rate_phase(dev, smi, sync, require, reps=5):
+def run_shading_rate_phase(dev, smi, sync, require, check_tile, check_depth,
+                           reps=5):
     """Phase 12: the JAX bench's ``shading_rate`` (bench.py:739-755,
     879-884): the skinned flagship at 8 envs rendered at internal_scale 2
     and 1 from the same state after one step, the PSNR between them; then
     64 envs at internal_scale 2 driven as phase 5 (1 warm-up + 10 frames),
-    ms/frame and env-fps, wall and device ms of ``reps`` more frames."""
+    ms/frame and env-fps, wall and device ms of ``reps`` more frames; K1
+    (extras records at the internal 128²) and K2 (the cascade atlas) on
+    the last frame's inputs bit-exact with times and bounds."""
     import dataclasses
 
     import torch
@@ -1302,9 +1350,22 @@ def run_shading_rate_phase(dev, smi, sync, require, reps=5):
         f"{spread(devt)} device busy per frame; peak memory "
         f"{d['peak'] / 2**30:.2f} GiB, {d['summary']}; launches in the "
         f"driven run {d['launches']} ({smi})")
+    # the internal frame's inputs: render_frame renders at W // s, H // s
+    # with internal_scale 1 (max(., 8) does not bind at 256 / 2)
+    ires = RES // 2
+    iopts = dataclasses.replace(renderer.opts, width=ires, height=ires,
+                                internal_scale=1)
+    _, rec, binned, srec, sbin, dims = frame_records(
+        renderer, gs.engine, gs.joint_mats, iopts)
+    k1 = kernel_report("phase 12", f"shading_rate {N_SLICE} envs internal "
+                       f"{ires}^2 extras records", check_tile, rec, binned,
+                       (ires, ires), False, smi)
+    k2 = kernel_report("phase 12", f"shading_rate {N_SLICE} envs cascade "
+                       f"atlas {dims[1]}x{dims[0]}", check_depth, srec, sbin,
+                       dims, True, smi)
     out = dict(launches=d["launches"], psnr=psnr, ms=d["dt"] * 1e3,
-               wall=wall, device=devt)
-    del d, renderer, gs, w
+               wall=wall, device=devt, k1=k1, k2=k2)
+    del d, renderer, gs, w, rec, binned, srec, sbin
     torch.cuda.empty_cache()
     return out
 

@@ -141,15 +141,12 @@ def ground_collide(world: StaticWorld, params: BodyParams, pos, idx: int,
 def character_move(world: StaticWorld, params: BodyParams,
                    cp: CharParams, cs: CharState,
                    body_pos, motion_dx, motion_dz, jump_input, dt,
-                   dash_input=None, idx: int = None):
+                   dash_input=None, *, idx: int):
     """character_move (character.c:450-537) for one character slot in
     every env. ``cp`` holds 0-dim tensors of that slot; body_pos (B, N, 3);
-    motion/jump/dash (B,); ``idx``: the slot's body index on the host
-    (SceneConfig.host), read from ``cp.body`` when not given. Returns
-    (new_body_pos_self (B, 3), CharState)."""
+    motion/jump/dash (B,); ``idx``: the slot's body index, a host int
+    (SceneConfig.host). Returns (new_body_pos_self (B, 3), CharState)."""
     dev = body_pos.device
-    if idx is None:
-        idx = int(cp.body)
     dt = torch.clamp(dt, 0.0, DT_CLAMP_MAX)
     zeros3 = torch.zeros_like(cs.velocity)
 

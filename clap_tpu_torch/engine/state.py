@@ -69,14 +69,12 @@ class SceneHost:
 
 
 def scene_host(bodies, char_body) -> SceneHost:
-    """SceneHost from the host arrays (or tensors, read to the host once)
-    that build a scene: BodyParams ``bodies`` and the characters' body
-    slots ``char_body`` (C,)."""
-    cb = char_body.detach().cpu().numpy() \
-        if isinstance(char_body, torch.Tensor) else np.asarray(char_body)
+    """SceneHost from the host arrays that build a scene: BodyParams
+    ``bodies`` and the characters' body slots ``char_body`` (C,)."""
     return SceneHost(body_flags=body_flags(bodies.half_len,
                                            bodies.kinematic),
-                     char_body=tuple(int(b) for b in cb.reshape(-1)))
+                     char_body=tuple(int(b) for b in
+                                     np.asarray(char_body).reshape(-1)))
 
 
 class SceneConfig(NamedTuple):

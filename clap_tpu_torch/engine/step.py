@@ -18,7 +18,7 @@ from .. import mathx as mx
 from ..device import resolve_device
 from ..char import controller as C
 from ..physics import world as W
-from .state import CameraState, EngineState, SceneConfig, scene_host
+from .state import CameraState, EngineState, SceneConfig
 
 
 class Inputs(NamedTuple):
@@ -55,10 +55,13 @@ def _char_params(cfg: SceneConfig, ci: int):
 
 
 def _host(cfg: SceneConfig):
-    """The scene's SceneHost; a config built without one reads it from its
-    tensors (a copy to the host)."""
-    return cfg.host if cfg.host is not None \
-        else scene_host(cfg.bodies, cfg.char_params.body)
+    """The scene's SceneHost, which its builder (build_testbed, the
+    bridge) fills: a step reads its flags and slots from the host only."""
+    if cfg.host is None:
+        raise ValueError("SceneConfig.host is not set: build the config "
+                         "with scene_host(bodies, char_body) from the host "
+                         "arrays")
+    return cfg.host
 
 
 def _characters_move(cfg: SceneConfig, st: EngineState, inputs: Inputs, dt):

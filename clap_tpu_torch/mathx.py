@@ -14,7 +14,6 @@ python-number arguments are promoted to float32 tensors.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -33,9 +32,9 @@ def _frozen(v):
         else v
 
 
-@functools.lru_cache(maxsize=None)
-def _const(values, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device)
+# const's tensors by (values, dtype, device); tests read it to check that
+# no caller wrote into one
+CONSTS = {}
 
 
 def const(values, device=None, dtype=torch.float32):
@@ -44,7 +43,11 @@ def const(values, device=None, dtype=torch.float32):
     kept: per-frame code reads it with no host-to-device copy after its
     first call. Never modify it in place. For the few fixed values of the
     frame code (axes, defaults, options), not for data."""
-    return _const(_frozen(values), dtype, torch.device(device or "cpu"))
+    key = (_frozen(values), dtype, torch.device(device or "cpu"))
+    t = CONSTS.get(key)
+    if t is None:
+        t = CONSTS[key] = torch.tensor(key[0], dtype=dtype, device=key[2])
+    return t
 
 
 def f32(x, device=None):

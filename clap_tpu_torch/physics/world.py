@@ -130,12 +130,8 @@ class BodyFlags:
 
 def body_flags(half_len, kinematic) -> BodyFlags:
     """BodyFlags of a body set from its host arrays: half_len (N,) and
-    kinematic (N,) bool (numpy, or tensors, which are read to the host)."""
-    def host(x):
-        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-            else np.asarray(x)
-
-    tumbling = host(half_len) * ~host(kinematic)
+    kinematic (N,) bool."""
+    tumbling = np.asarray(half_len) * ~np.asarray(kinematic)
     return BodyFlags(two_ended=bool(np.any(tumbling > 0)),
                      iso=bool(np.all(tumbling == 0)))
 
@@ -420,14 +416,11 @@ def _where_env(do, new, old):
 
 def phys_step(world: StaticWorld, params: BodyParams, state: PhysState,
               dt, max_substeps: int = MAX_SUBSTEPS,
-              solver_passes: int = N_SOLVER_PASSES,
-              flags: BodyFlags = None) -> PhysState:
+              solver_passes: int = N_SOLVER_PASSES, *,
+              flags: BodyFlags) -> PhysState:
     """phys_step (physics.c:773-787): fixed-dt accumulator, ≤ max_substeps
     masked substeps per frame. ``flags``: the body set's BodyFlags, decided
-    where the params were built (SceneConfig.host); without them they are
-    read from ``params``, which copies to the host."""
-    if flags is None:
-        flags = body_flags(params.half_len, params.kinematic)
+    on the host where the params were built (SceneConfig.host)."""
     two_ended, iso = flags.two_ended, flags.iso
     acc = state.time_acc + dt
     patches = _body_patches(world, state.pos, two_ended)

@@ -204,6 +204,32 @@ def test_grain_and_lut_unread_while_off(rendered):
     assert np.array_equal(got[3], got[4])
 
 
+def test_frame_constants_stay_unchanged():
+    """mathx.const's tensors are shared by every caller on a device: two
+    engine steps and two frames of the composed testbed leave each one
+    equal to the values it was made from."""
+    from clap_tpu_torch import mathx as tmx
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.engine.step import engine_step, inputs_zero
+
+    _, T, _, trt, _, tl = composed_scene()
+    renderer = SceneRenderer(trt, tl, tpl.RenderOptions(**OPTS),
+                             skip_culling=T.cfg.entities.skip_culling,
+                             lod_scale=LOD_SCALE)
+    st = ttb.replicate_state(T.state0, B)
+    ins = tree_map(lambda x: x.expand(B, *x.shape).clone(),
+                   inputs_zero(2, device="cpu"))
+    ins.motion[:, 0, 0] = 1.0
+    for _ in range(2):
+        st = engine_step(T.cfg, st, ins, camera_occlusion=True)
+        assert np.isfinite(renderer(st).numpy()).all()
+    assert tmx.CONSTS
+    for (values, dtype, device), t in tmx.CONSTS.items():
+        torch.testing.assert_close(
+            t, torch.tensor(values, dtype=dtype, device=device), rtol=0,
+            atol=0, equal_nan=True, msg=f"const {values} was written to")
+
+
 def test_film_grain_raises_when_on():
     with pytest.raises(NotImplementedError, match="film grain"):
         tpl.render_frame(tpl.RenderOptions(**{**OPTS, "film_grain": 0.03}),

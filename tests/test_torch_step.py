@@ -142,7 +142,15 @@ def test_phys_step_copies_nothing_to_host(monkeypatch):
                       flags=flags)
     assert all(torch.equal(a, b) for a, b in zip(ref, got))
     with pytest.raises(AssertionError, match="host"):   # the patch bites
+        T.cfg.bodies.half_len.cpu()
+    # the flags have no device fallback: a config without its host facts
+    # is refused, not read back
+    with pytest.raises(TypeError, match="flags"):
         W.phys_step(T.cfg.world, T.cfg.bodies, st.phys, 1.0 / 60.0)
+    with pytest.raises(ValueError, match="SceneConfig.host"):
+        engine_step(T.cfg._replace(host=None), st, tree_map(
+            lambda x: x.expand(2, *x.shape).clone(),
+            t_inputs_zero(1, device="cpu")))
 
 
 def test_engine_step_reads_nothing_back():
