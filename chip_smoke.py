@@ -83,11 +83,35 @@ Phases, one or more lines each:
     driven as phase 5: ms/frame, env-fps, wall and device ms; K1 on the
     internal 128² extras records and K2 on the cascade atlas of the last
     frame bit-exact, timed, bounded.
+13. game frame — the game's own rendered frame (demo/testbed.py:62-200,
+    ``--render``) through ``game_frame_step`` (game_step with the camera
+    occlusion, then GameFrameRenderer): 1 env × 640 × 360, two spore
+    systems of 256 live particles drawn by K1, film grain on the committed
+    blue noise, textured skinned characters, the single-env assembly and
+    the 1,024² static bake. 1 warm-up + 10 frames, wall and device busy ms
+    (median and range), the render alone, peak memory, launches (two K1 a
+    frame, one K2 and the bake); every frame finite with std > 0.01,
+    particles and grain change pixels; K1 bit-exact on the particle and
+    surface records, K2 on the atlas and the bake, timed and bounded; the
+    frame against the port's CPU path (PSNR >= 35 dB; the JAX package
+    cannot raster 640 wide).
+14. options — the skinned flagship (phase 5's world, 64 envs × 256²) from
+    one state: the default frame and one frame per render option
+    (model_msaa 2, shadow_msaa 2, PCF, laplace edges, SSAO kernel mode,
+    fog noise, material fog, a 32³ ``teal orange`` LUT) and the menu blur
+    of the default frame: wall and device busy ms (median and range of 3
+    after a warm-up), peak memory, launches; each finite, full-size and
+    different from the default frame. K1 bit-exact on model_msaa 2's 512²
+    records and K2 on shadow_msaa 2's (64, 2,048, 512) atlas, timed and
+    bounded.
 
 Each new path's kernel launches are counted from 0 over its driven run.
 
 Then a JSON line of the kernels (``raster_tile`` / ``raster_depth`` with
-each path's launches and kernel numbers as prefixed fields), the
+each path's launches and kernel numbers as prefixed fields: ``textured_``,
+``full_frame_``, ``full_frame_dense_``, ``production_``, ``batched_``,
+``shading_rate_``, ``game_frame_``, ``particles_``, ``msaa_``,
+``shadow_msaa_``), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
@@ -354,6 +378,10 @@ def main() -> int:
     rate = run_shading_rate_phase(dev, smi, sync, require, check_tile,
                                   check_depth)
 
+    # ----------------------------------------------------------- 13-14
+    game = run_game_frame_phase(dev, smi, require, check_tile, check_depth)
+    opt = run_options_phase(dev, smi, require, check_tile, check_depth)
+
     def fields(prefix, launches, rep):
         """A path's launches and one kernel report as extra fields."""
         f = {} if launches is None else {f"{prefix}_launches": launches}
@@ -375,6 +403,17 @@ def main() -> int:
         if k == "raster_depth":       # the production frame's own atlas
             f.update(fields("production_cascade", None,
                             prod["k2_cascade"]))
+        # the game frame: its surface (K1) and cascade atlas (K2), the
+        # particles' K1 and the bake's K2; the options' supersampled passes
+        f.update(fields("game_frame", game["launches"][k], game[rep]))
+        if k == "raster_tile":
+            f.update(fields("particles", game["launches"][k],
+                            game["particles"]))
+            f.update(fields("msaa", opt["msaa_launches"][k], opt["msaa"]))
+        else:
+            f.update(fields("game_frame_bake", None, game["bake"]))
+            f.update(fields("shadow_msaa", opt["shadow_msaa_launches"][k],
+                            opt["shadow_msaa"]))
         return f
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
@@ -746,6 +785,129 @@ def build_batched(dev, n_envs=64, res=256):
     return dict(rt=rt, geom=geom, opts=opts,
                 lights=sun_lights(dev, color=(1.0, 1.0, 1.0)), eyes=eyes,
                 views=look_at(eyes, [0.0, 0.0, 0.0], dev), proj=proj)
+
+
+def build_game_frame(dev, width=640, height=360, scene=None, seed=3):
+    """The game's own frame as demo/testbed.py:62-200 wires it (``--render``),
+    JAX-free: the testbed with 2 characters (``scene`` overrides
+    build_testbed's arguments), the demo rig on both, the terrain a
+    permanent switch, two spore systems of 256 live particles around the
+    characters (radius 1.6, velocity 0.015; ``seed`` seeds their spawn),
+    the demo's four models (the terrain one unchunked textured entity,
+    skinned textured ring-column characters, cubes, textured trees) and
+    three textures, the static shadow split, one sun, film grain 0.03 on the
+    default blue noise, particle size 0.1 and colour (0.95, 0.9, 0.5), at
+    ``width`` × ``height`` with 256² cascades; one env. Returns a dict: tb,
+    rt, cs, textures, lights, opts, gw, gs, ins, renderer
+    (GameFrameRenderer, the static atlas baked)."""
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch.anim.system import anim_instances_init
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.device import resolve_device
+    from clap_tpu_torch.engine.frame import GameFrameRenderer
+    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
+    from clap_tpu_torch.engine.gamelogic import (game_config_empty,
+                                                 game_state_init)
+    from clap_tpu_torch.engine.step import inputs_zero
+    from clap_tpu_torch.ops.noise import blue_noise2d
+    from clap_tpu_torch.ops.particles import (PARTICLES_MAX, ParticleParams,
+                                              particles_init)
+    from clap_tpu_torch.render.pipeline import RenderOptions, TextureSets
+    from clap_tpu_torch.render.scenerender import (build_render_tables,
+                                                   default_edge_ids,
+                                                   model_from_mesh,
+                                                   shadow_static_mask)
+    from clap_tpu_torch.scene import testbed as tbm
+    from clap_tpu_torch.scene.primitives import cube
+
+    dev = resolve_device(dev)
+    kw = dict(seed=42, side=64.0, nr_v=128, n_dynamic=8, max_entities=64)
+    kw.update(scene or {})
+    tb = tbm.build_testbed(**kw, n_chars=2, device=dev)
+    ent = tb.cfg.entities
+    n_ent = ent.active.shape[0]
+    sk, lib, acfg = tbm.build_demo_rig(device=dev)
+    gcfg = game_config_empty(1, n_ent, device=dev)._replace(
+        switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
+        switch_valid=torch.tensor([True], device=dev),
+        switch_permanent=torch.tensor([True], device=dev))
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    pparams = ParticleParams(
+        active=t([True, True], torch.bool), radius=t([1.6, 1.6]),
+        min_radius=t([0.4, 0.4]), velocity=t([0.015, 0.015]),
+        dist=t([1, 1], torch.int32),
+        count=t([PARTICLES_MAX // 4] * 2, torch.int32))
+    pentity = t([1, 2], torch.int32)
+    gw = GameWorld(scene=tb.cfg, game=gcfg, anim=acfg, anim_sk=sk,
+                   anim_lib=lib, particles=pparams, particle_entity=pentity)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gs = tbm.replicate_state(GameSessionState(
+        engine=tb.state0, game=game_state_init(1, 2, device=dev),
+        anim=anim_instances_init(2, device=dev),
+        particles=particles_init(pparams, tb.state0.pos[pentity.long()],
+                                 gen),
+        joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), 1)
+
+    # the demo's textures: a checker (characters), bark (trees) and the
+    # terrain's 2x2 grass/rock atlas, blended by slope
+    checker = np.zeros((32, 32, 3), np.float32) + 0.55
+    checker[::2, ::2] = (0.95, 0.55, 0.35)
+    checker[1::2, 1::2] = (0.95, 0.55, 0.35)
+    bark = np.zeros((32, 32, 3), np.float32)
+    bark[:] = (0.45, 0.33, 0.2)
+    bark[:, ::4] = (0.3, 0.2, 0.12)
+    rng = np.random.default_rng(7)
+    atlas = np.zeros((32, 32, 3), np.float32)
+    gnoise = rng.uniform(0.85, 1.15, (16, 16, 1)).astype(np.float32)
+    atlas[:16, :16] = np.array([0.30, 0.52, 0.22]) * gnoise
+    rnoise = rng.uniform(0.8, 1.2, (16, 16, 1)).astype(np.float32)
+    atlas[16:, 16:] = np.array([0.45, 0.43, 0.40]) * rnoise
+    atlas[:16, 16:] = atlas[:16, :16]
+    atlas[16:, :16] = atlas[16:, 16:]
+    textures = TextureSets(
+        diffuse=torch.as_tensor(np.stack([checker, bark, atlas]),
+                                device=dev),
+        slope_blend=t([False, False, True], torch.bool))
+
+    cv, cn, cuv, cf = cube(1.0)
+
+    def cube_mesh(w, h):
+        return (cv * np.array([w, h, w], np.float32)
+                + np.array([0, h / 2, 0], np.float32), cn, cf)
+
+    ter = tb.terrain
+    chv, chn, chuv, chf = tbm.char_column_mesh(0.6, 2.0)
+    models = [
+        model_from_mesh(ter.vx, ter.norm, ter.idx.reshape(-1, 3),
+                        base_color=(1.0, 1.0, 1.0), with_lods=False,
+                        uv=ter.uv, tex_id=2),
+        model_from_mesh(chv, chn, chf, base_color=(0.8, 0.5, 0.4), uv=chuv,
+                        tex_id=0),
+        model_from_mesh(*cube_mesh(0.8, 0.8), base_color=(0.6, 0.6, 0.7)),
+        model_from_mesh(*cube_mesh(0.8, 3.0), base_color=(0.4, 0.3, 0.2),
+                        uv=cuv, tex_id=1),
+    ]
+    rt = build_render_tables(
+        models, ent.model_id, ent.active,
+        entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
+        entity_shadow_static=shadow_static_mask(ent), device=dev)
+    lights = sun_lights(dev)
+    cs = tbm.build_testbed_char_skin(tb, models, rt, device=dev)
+    opts = RenderOptions(width=width, height=height, shadow_size=256)
+    renderer = GameFrameRenderer(
+        rt, lights, opts, skip_culling=ent.skip_culling, textures=textures,
+        grain_noise=blue_noise2d(64, device=dev), particle_params=pparams,
+        particle_size=0.1, particle_color=(0.95, 0.9, 0.5), char_skin=cs,
+        entity_mx0=tb.state0.mx)
+    ins = tree_map(lambda x: x[None].clone(), inputs_zero(2, device=dev))
+    ins.motion[:, 0, 0] = 1.0
+    return dict(tb=tb, rt=rt, cs=cs, textures=textures, lights=lights,
+                opts=opts, gw=gw, gs=gs, ins=ins, renderer=renderer)
 
 
 def make_renderer(w, static, to=None):
@@ -1368,6 +1530,219 @@ def run_shading_rate_phase(dev, smi, sync, require, check_tile, check_depth,
     del d, renderer, gs, w, rec, binned, srec, sbin
     torch.cuda.empty_cache()
     return out
+
+
+def run_game_frame_phase(dev, smi, require, check_tile, check_depth,
+                         frames=10, reps=5):
+    """Phase 13: the game's own frame (demo/testbed.py:62-200 through
+    ``game_frame_step``: game_step with the camera occlusion, then
+    GameFrameRenderer) at 1 env × 640 × 360 with two spore systems of 256
+    live particles, film grain and the 1,024² static bake: the counts
+    start at 0 before the renderer is built (the bake is the path's), 1
+    warm-up + ``frames`` wall-timed frames + ``reps`` profiled ones, each
+    frame finite with std > 0.01, two K1 launches a frame (the surface and
+    the particles) and one K2 (the cascade atlas) besides the bake;
+    particles and grain change pixels; K1 bit-exact on the frame's
+    particle and surface records, K2 on its atlas and the bake, timed
+    beside their plain versions and bounded; the frame against the port's
+    own CPU path (the JAX package cannot raster 640 wide)."""
+    import copy
+
+    import torch
+
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.engine.frame import game_frame_step
+    from clap_tpu_torch.render.pipeline import (clip_transform,
+                                                gather_records,
+                                                particle_records,
+                                                shadow_records)
+    from clap_tpu_torch.render.view import cascade_subviews
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    w = build_game_frame(dev)
+    r, gw, gs, ins = w["renderer"], w["gw"], w["gs"], w["ins"]
+    W, H = r.opts.width, r.opts.height
+    calls = 0
+
+    def step(gs):
+        nonlocal calls
+        calls += 1
+        return game_frame_step(gw, r, gs, ins)
+
+    t0 = time.perf_counter()
+    gs, img = step(gs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    walls, stds = [], []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs, img = step(gs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(img).all()), "game frame finite")
+        stds.append(float(img.std()))
+    busy = [device_busy_ms(lambda: step(gs)) for _ in range(reps)]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(min(stds) > 0.01, f"every game frame has std > 0.01: {stds}")
+    require(launches == {"raster_tile": 2 * calls,
+                         "raster_depth": calls + 1},
+            f"two K1 launches a frame (surface, particles), one K2 (the "
+            f"cascades) and the bake over {calls} frames: {launches}")
+    st, jm = gs.engine, gs.joint_mats
+    rwall, rbusy = frame_times(lambda: r(st, gs.particles, None, jm), 3)
+    no_parts = r(st, None, None, jm)
+    n_parts = int(((img - no_parts).abs().amax(-1) > 0.02).sum())
+    grain, r.grain_noise = r.grain_noise, None
+    no_grain = r(st, gs.particles, None, jm)
+    r.grain_noise = grain
+    g_share = float(((img - no_grain).abs().amax(-1) > 1e-3).float().mean())
+    require(n_parts > 20, f"particles change pixels ({n_parts})")
+    require(g_share > 0.3, f"film grain changes pixels ({g_share:.3f})")
+    log(f"phase 13 game frame (demo/testbed.py --render): 1 env x {W}x{H}, "
+        f"{gs.particles.pos[0, :, :, 0].numel()} particles in 2 systems "
+        f"({int(r.particle_active.sum())} live), grain {r.opts.film_grain}: {spread(walls)} wall over "
+        f"{frames} frames (game_step + render; warm-up with the bake "
+        f"{warm:.2f} s) / {spread(busy)} device busy per frame; the render "
+        f"alone {spread(rwall)} wall / {spread(rbusy)} device busy; peak "
+        f"memory {peak / 2**30:.3f} GiB; image std {min(stds):.4f}.."
+        f"{max(stds):.4f}; particles change {n_parts} pixels, grain "
+        f"{g_share:.1%}; launches in the driven run (bake, "
+        f"{calls} frames) {launches} ({smi})")
+    view = r.view(st)
+    rec, binned = particle_records(
+        r.opts, gs.particles.pos.reshape(1, -1, 3), r.particle_size,
+        r.particle_active, view, r.proj)
+    kp = kernel_report("phase 13", f"game frame particle billboards "
+                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
+                       (W, H), False, smi)
+    geom = r.geometry(st, view, jm)
+    rec, binned = gather_records(r.opts, geom, clip_transform(
+        geom.verts, view, r.proj))[:2]
+    k1 = kernel_report("phase 13", f"game frame surface {W}x{H} "
+                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
+                       (W, H), False, smi)
+    casc, _ = cascade_subviews(view, r.proj, r.lights.direction[0], 0.1,
+                               r.far)
+    srec, sbin, dims = shadow_records(r.opts, geom, casc.view, casc.proj)
+    k2 = kernel_report("phase 13", f"game frame cascade atlas "
+                       f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
+                       True, smi)
+    brec, bbin, bd = bake_records(w["rt"], w["tb"], w["lights"])
+    kb = kernel_report("phase 13", f"game frame static bake {bd[1]}x{bd[0]}",
+                       check_depth, brec, bbin, bd, True, smi)
+    cpu = copy.deepcopy(r).to("cpu")
+    ref = cpu(*tree_map(lambda x: x.cpu(), (st, gs.particles)), None,
+              jm.cpu())
+    mse = float(((img.cpu() - ref) ** 2).mean())
+    p = 10 * math.log10(1.0 / max(mse, 1e-12))
+    log(f"phase 13 end-to-end: the {W}x{H} CUDA game frame vs the port's "
+        f"plain CPU path PSNR {p:.1f} dB")
+    require(p >= 35.0, "game frame PSNR >= 35 dB vs the CPU path")
+    out = dict(launches=launches, wall=walls, device=busy, render_wall=rwall,
+               render_device=rbusy, psnr=p, k1=k1, particles=kp, k2=k2,
+               bake=kb)
+    del w, r, gs, img, geom, rec, srec, brec, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_options_phase(dev, smi, require, check_tile, check_depth, reps=3):
+    """Phase 14: the render options on the skinned flagship (phase 5's
+    world at 64 envs × 256²) from one state after a step: the default
+    frame, then one frame per option (model_msaa 2, shadow_msaa 2, PCF,
+    laplace edges, SSAO kernel mode, fog noise, material fog, a baked
+    ``teal orange`` LUT at 32³) and the pause-menu blur of the default
+    frame: per variant 1 warm-up + ``reps`` wall-timed and ``reps``
+    profiled frames, peak memory, launches; each finite, full-size and
+    different from the default frame. K1 bit-exact on model_msaa 2's 512²
+    records and K2 on shadow_msaa 2's (64, 2,048, 512) atlas, timed and
+    bounded."""
+    import dataclasses
+
+    import torch
+
+    from clap_tpu_torch.engine.game import game_step
+    from clap_tpu_torch.render.lut import bake_lut, lut_find
+    from clap_tpu_torch.render.pipeline import menu_blur
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    w = build_slice(dev)
+    static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                w["lights"].direction[0], shadow_size=1024,
+                                far=200.0)
+    gs = game_step(w["gw"], w["gs"], w["ins"])
+    st, jm = gs.engine, gs.joint_mats
+    base = w["opts"]
+    lut = bake_lut(lut_find("teal orange"), 32, device=dev)
+    variants = [
+        ("default", {}, {}),
+        ("model_msaa 2", dict(model_msaa=2), {}),
+        ("shadow_msaa 2", dict(shadow_msaa=2), {}),
+        ("pcf", dict(shadow_vsm=False), {}),
+        ("laplace edges", dict(edge_sobel=False), {}),
+        ("ssao kernel", dict(ssao_mode="kernel"), {}),
+        ("fog_noise", dict(fog_noise=True), {}),
+        ("material_fog", dict(material_fog=True), {}),
+        ("lighting_lut teal orange 32^3", dict(lighting_lut=True),
+         dict(lut_volume=lut)),
+    ]
+    out, default = {}, None
+    shape = (st.pos.shape[0], RES, RES, 3)
+    for name, okw, rkw in variants + [("menu_blur", None, None)]:
+        if okw is None:
+            def fn():
+                return menu_blur(default, base)
+        else:
+            rv = make_renderer(dict(w, opts=dataclasses.replace(base, **okw)),
+                               static)
+
+            def fn(rv=rv, rkw=rkw):
+                return rv(st, jm, **rkw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        img = fn()
+        wall, busy = frame_times(fn, reps)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        require(tuple(img.shape) == shape and bool(torch.isfinite(img).all()),
+                f"{name}: finite {shape} frame")
+        diff = 0.0 if default is None else float((img - default).abs().max())
+        if default is None:
+            default = img
+        else:
+            require(diff > 0.0, f"{name} differs from the default frame")
+        if okw is not None:
+            require(all(v > 0 for v in launches.values()),
+                    f"{name}: K1 and K2 launched: {launches}")
+        log(f"phase 14 option {name}: {spread(wall)} wall / {spread(busy)} "
+            f"device busy per frame of {shape[0]} envs x {RES}^2, peak "
+            f"memory {peak / 2**30:.2f} GiB, max abs diff from the default "
+            f"frame {diff:.4g}; launches in its run (1 warm-up, {reps} "
+            f"wall-timed and {reps} profiled) {launches} ({smi})")
+        out[name] = dict(wall=wall, device=busy, peak=peak, diff=diff,
+                         launches=launches)
+        del img
+    msaa = dataclasses.replace(base, width=2 * RES, height=2 * RES)
+    rf = make_renderer(w, static)
+    _, rec, binned, _, _, _ = frame_records(rf, st, jm, msaa)
+    k1 = kernel_report("phase 14", f"model_msaa 2 {shape[0]} envs "
+                       f"{2 * RES}^2 extras records", check_tile, rec, binned,
+                       (2 * RES, 2 * RES), False, smi)
+    smsaa = dataclasses.replace(base, shadow_msaa=2)
+    *_, srec, sbin, dims = frame_records(rf, st, jm, smsaa)
+    k2 = kernel_report("phase 14", f"shadow_msaa 2 {shape[0]} envs cascade "
+                       f"atlas {dims[1]}x{dims[0]}", check_depth, srec, sbin,
+                       dims, True, smi)
+    del w, rf, rec, binned, srec, sbin, default
+    torch.cuda.empty_cache()
+    return dict(variants=out, msaa=k1, shadow_msaa=k2,
+                msaa_launches=out["model_msaa 2"]["launches"],
+                shadow_msaa_launches=out["shadow_msaa 2"]["launches"])
 
 
 def bake_records(rt, tb, lights):

@@ -11,6 +11,9 @@ per frame. Semantics match particle.c:
 - per-frame Euler step pos += velocity; respawn when the particle leaves
   radius² (particles_update particle.c:89-120)
 - PARTICLES_MAX = 1024 per system (shader_constants.h:7)
+- billboarding transposes the view rotation at render time
+  (particle.c:93-100): ``billboard_matrix``; ``particle_clip_quads`` makes
+  the camera-facing quads of the instanced draw as a triangle stream
 
 Randomness comes from a ``torch.Generator`` passed per call; the state
 holds no key. ``particles_advance`` is the deterministic body, which takes
@@ -103,3 +106,58 @@ def particles_update(params: ParticleParams, st: ParticleState, centers,
     """particles_update (particle.c:89-120), drawing from ``generator``."""
     draws = particle_draws(st.pos.shape[:-1], generator, st.pos.device)
     return particles_advance(params, st, centers, *draws)
+
+
+def billboard_matrix(view):
+    """Camera-facing model rotation (particle.c:93-100): the transpose of
+    the view rotation in a 4×4, for view (..., 4, 4)."""
+    m = torch.eye(4, dtype=view.dtype, device=view.device).expand(
+        view.shape).clone()
+    m[..., :3, :3] = view[..., :3, :3].transpose(-1, -2)
+    return m
+
+
+def _xform(m, v):
+    """m (..., 4, 4) applied to points v (..., P[, K], 3) with w = 1, each
+    row summed in pairs as the JAX package's einsum is on the CPU."""
+    m = m.reshape(m.shape[:-2] + (1,) * (v.dim() - m.dim() + 1)
+                  + m.shape[-2:])
+    x, y, z = (v[..., i, None] for i in range(3))
+    return (m[..., 0] * x + m[..., 1] * y) + (m[..., 2] * z + m[..., 3])
+
+
+# quad corners in view space, in units of the size: 00, 10, 01, 11
+_CORNERS = [[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [-1.0, 1.0, 0.0],
+            [1.0, 1.0, 0.0]]
+
+
+def particle_clip_quads(pos, size, cam_view, cam_proj, active=None):
+    """Camera-facing billboard quads as a clip-space triangle stream (the
+    instanced particle draw, particle.c:122-125 + particle.vert): each
+    particle becomes two triangles spanning ±size in view space.
+
+    pos (B, P, 3) world positions (systems flattened); size a number,
+    (P,) or (B, P); cam_view (B, 4, 4); cam_proj (4, 4) or (B, 4, 4);
+    active (P,) or (B, P) bool. Returns (tri_verts (B, 6P, 4) clip
+    coordinates, faces (2P, 3) int32, valid (B, 2P), owner (2P,) particle
+    index)."""
+    from .. import mathx as mx
+
+    B, P = pos.shape[:2]
+    dev = pos.device
+    vp = _xform(cam_view, pos)[..., :3]                       # (B, P, 3)
+    s = (size if torch.is_tensor(size)
+         else mx.const(float(size), dev, pos.dtype)).expand(B, P)
+    corners = vp[..., None, :] + mx.const(_CORNERS, dev, pos.dtype) \
+        * s[..., None, None]                                  # (B, P, 4, 3)
+    proj = cam_proj if cam_proj.dim() == 3 else cam_proj.expand(B, 4, 4)
+    clip = _xform(proj, corners)                              # (B, P, 4, 4)
+    # CCW in view space (y up): (00, 10, 01) and (10, 11, 01)
+    tris = clip[:, :, mx.const([0, 1, 2, 1, 3, 2], dev, torch.long)]
+    valid = torch.ones((B, P), dtype=torch.bool, device=dev) \
+        if active is None else active.expand(B, P)
+    owner = torch.arange(P, dtype=torch.int32,
+                         device=dev).repeat_interleave(2)
+    faces = torch.arange(P * 6, dtype=torch.int32, device=dev).reshape(-1, 3)
+    return (tris.reshape(B, P * 6, 4), faces, valid.repeat_interleave(2, -1),
+            owner)

@@ -2,20 +2,23 @@
 core/pipeline.c + pipeline-builder.c:182-613).
 
 Each pass is a function over batched image tensors and the "graph" is
-function composition assembled from RenderOptions. The chain ported here
-is the composed frame:
+function composition assembled from RenderOptions. The canonical chain:
 
-  4-cascade VSM shadow atlas (K2) → model pass (K1 G-buffer; surface
-  attributes either kernel-interpolated normals with per-entity flat
-  materials — ``kernel_attrs`` over cluster records — or the per-pixel
-  gather of interpolated vertex attributes with textures, TBN and
-  material fBm — member-granularity geometry; deferred GGX with the
-  static × dynamic shadow factor) → sobel edges → SMAA-lite → shift SSAO
-  → bloom → fog → contrast → ACES → outlines → sRGB OETF.
+  4-cascade shadow atlas (K2; ``shadow_msaa`` rasters it at f× and pools
+  the moments) → model pass (K1 G-buffer; surface attributes either
+  kernel-interpolated normals with per-entity flat materials —
+  ``kernel_attrs`` over cluster records — or the per-pixel gather of
+  interpolated vertex attributes with textures, TBN and material fBm —
+  member-granularity geometry; deferred GGX with the static × dynamic
+  shadow factor, VSM at quarter resolution or PCF at full; material fog)
+  → particles (K1 on billboard records, depth-tested, blended) → sobel or
+  laplace edges → SMAA-lite → shift or hemisphere-kernel SSAO → bloom →
+  fog (noise-tinted) → contrast → LUT → ACES → outlines → film grain →
+  sRGB OETF. ``internal_scale`` renders all of it at 1/s², ``model_msaa``
+  at f² the pixels and box-resolves.
 
-Every function takes a leading env axis B; there is one K1 launch and one
-K2 launch per pass for all envs. Options the port does not carry yet
-raise NotImplementedError.
+Every function takes a leading env axis B; there is one K1 launch per
+raster pass and one K2 launch per shadow pass for all envs.
 """
 from __future__ import annotations
 
@@ -26,20 +29,22 @@ from typing import NamedTuple
 import torch
 
 from .. import mathx as mx
+from ..ops.noise import fog_cloud, noise3d_field, noise_glsl
+from ..ops.particles import particle_clip_quads
 from . import post, shade
+from .lut import apply_lut
 from .lights import Lights, light_grid
 from .raster import (CLUSTER, GBuffer, assemble_tri_records, bin_triangles,
-                     clip_near_records, compact_faces, ent_pack_stride,
-                     project_to_screen, rasterize, rasterize_attrs,
-                     rasterize_depth, tile_dims)
+                     clip_near_records, compact_faces, corner_records,
+                     ent_pack_stride, project_to_screen, rasterize,
+                     rasterize_attrs, rasterize_depth, tile_dims)
 from .view import bounds_light_subview, cascade_subviews
 
 
 @dataclass(frozen=True)
 class RenderOptions:
     """render_options (pipeline.h:15-57): the JAX package's RenderOptions
-    and defaults, without the fields only unported paths read
-    (fog_3d_amp, fog_3d_scale)."""
+    and defaults."""
 
     width: int = 1280
     height: int = 720
@@ -65,6 +70,8 @@ class RenderOptions:
     shadow_msaa: int = 1
     fog_noise: bool = False
     material_fog: bool = False
+    fog_3d_amp: float = 1.0          # material fog: fog_cloud amplitude
+    fog_3d_scale: float = 0.05       # and frequency
     film_grain: float = 0.03
     tonemap_aces: bool = True
     shadow_outline_threshold: float = 0.5
@@ -163,10 +170,9 @@ def shadow_records(opts: RenderOptions, geom: SceneGeometry, casc_views,
                    casc_projs):
     """The two-sided depth records of every env's cascade atlas and their
     band-clamped binning. Returns (rec, binned, (width, height, tile_h,
-    tile_w)) — the atlas is (C·S, S), cascade c in rows [c·S, (c+1)·S)."""
-    if opts.shadow_msaa > 1:
-        raise NotImplementedError("shadow_msaa > 1")
-    s = opts.shadow_size
+    tile_w)) — the atlas is (C·S, S), cascade c in rows [c·S, (c+1)·S),
+    with S = shadow_size · shadow_msaa."""
+    s = opts.shadow_size * max(opts.shadow_msaa, 1)
     B, n_casc = casc_views.shape[:2]
     if geom.shadow_faces is not None:
         faces0, valid0 = geom.shadow_faces, geom.shadow_face_valid
@@ -219,14 +225,19 @@ def shadow_pass_all(opts: RenderOptions, geom: SceneGeometry, casc_views,
                     casc_projs):
     """All cascades of every env in ONE depth raster (one K2 launch) over a
     vertically stacked (C·S, S) atlas per env: casc_views/casc_projs
-    (B, C, 4, 4). Returns (B, C, S, S, 2) linearized VSM moments."""
+    (B, C, 4, 4). Returns (B, C, S, S, 2) linearized VSM moments; with
+    ``shadow_msaa`` f the atlas is rastered at f·S and each cascade's
+    moments are average-pooled back to S (moments are linear in coverage,
+    so the pool is the multisample resolve)."""
     B, n_casc = casc_views.shape[:2]
-    s = opts.shadow_size
     rec, binned, (w, h, th, tw) = shadow_records(opts, geom, casc_views,
                                                  casc_projs)
     depth = rasterize_depth(rec, binned, w, h, th, tw)
     d = torch.where(torch.isfinite(depth), depth * 0.5 + 0.5, 1.0)
-    return torch.stack([d, d * d], dim=-1).reshape(B, n_casc, s, s, 2)
+    m = torch.stack([d, d * d], dim=-1).reshape(B * n_casc, w, w, 2)
+    if opts.shadow_msaa > 1:
+        m = post.downsample_pool(m, opts.shadow_msaa)
+    return m.reshape(B, n_casc, *m.shape[1:])
 
 
 def surface_records(opts: RenderOptions, geom: SceneGeometry, clip=None):
@@ -476,12 +487,10 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
     """MRT model pass (pipeline-builder.c:329-364) as raster + deferred
     shading: kernel-side attributes over cluster records
     (``opts.kernel_attrs``) or the per-pixel attribute gather over
-    member-granularity geometry. Returns (hdr, emission, view normals,
-    gbuffer, view_pos, edge_meta)."""
-    if not opts.shadow_vsm:
-        raise NotImplementedError("PCF shadows (shadow_vsm=False)")
-    if opts.material_fog:
-        raise NotImplementedError("material_fog")
+    member-granularity geometry. The per-frame atlas is read by VSM at
+    quarter resolution, or with ``shadow_vsm`` off by 5×5 PCF on its depth
+    channel at full resolution; the static atlas stays VSM. Returns (hdr,
+    emission, view normals, gbuffer, view_pos, edge_meta)."""
     W, H = opts.width, opts.height
     dev = cam_view.device
     if geom.comp is not None:
@@ -535,9 +544,13 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
                               sf_q.shape[2] * 2)
         return post.upsample2(sf_h, H, W)[..., 0]
 
-    if shadow_moments is not None:
+    if shadow_moments is not None and opts.shadow_vsm:
         sf = _up(shade.vsm_shadow(shadow_moments, shadow_mvps,
                                   cascade_dists, q_pos, q_vd))
+    elif shadow_moments is not None:
+        sf = shade.pcf_shadow(shadow_moments[..., 0], shadow_mvps,
+                              cascade_dists, wpos, view_depth, nrm,
+                              lights.direction[0])
     if static_shadow is not None:
         sm_s, mvp_s, cd_s = static_shadow
         sf_s = _up(shade.vsm_shadow(sm_s, mvp_s, cd_s, q_pos, q_vd))
@@ -550,8 +563,13 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
     tile_mask = light_grid(lights, cam_view, cam_proj, W, H)
     mat = shade.Material(base_color=base, roughness=rough, metallic=metal,
                          emission=emission)
+    fog_density = None
+    if opts.material_fog:
+        # use_3d_fog (lighting.glsl:209-213): density from the analytic
+        # noise field at the world position
+        fog_density = fog_cloud(wpos, opts.fog_3d_amp, opts.fog_3d_scale)
     hdr = shade.shade_pixels(wpos, nrm, eye, mat, lights, tile_mask,
-                             shadow_factor=sf)
+                             shadow_factor=sf, fog_density=fog_density)
     fog_c = mx.const(opts.fog_color, dev)
     hdr = torch.where(hit2[..., None], hdr, fog_c)
     emit = post.bloom_threshold(emission, opts.bloom_threshold,
@@ -571,30 +589,70 @@ def model_pass(opts: RenderOptions, geom: SceneGeometry, cam_view,
     return hdr, emit, vnrm, gb, vpos, edge_meta
 
 
+def particle_records(opts: RenderOptions, ppos, psize, pactive, cam_view,
+                     cam_proj):
+    """The billboard quads of every env's particles (``ops/particles.py::
+    particle_clip_quads``) as corner records, 2·P per env, and their
+    binning: (rec, binned). Nothing is near-clipped: a quad with a corner
+    at w <= 0 fails the records' own validity test, as in the JAX
+    package."""
+    W, H = opts.width, opts.height
+    verts, _faces, valid, _owner = particle_clip_quads(
+        ppos, psize, cam_view, cam_proj, pactive)
+    sx, sy, z, iw = project_to_screen(verts, W, H)
+    vr = torch.stack([sx, sy, z, iw], dim=-1).reshape(
+        verts.shape[0], -1, 3, 4)
+    rec, ok = corner_records(vr[:, :, 0], vr[:, :, 1], vr[:, :, 2], valid)
+    return rec, bin_triangles(rec, ok, W, H)
+
+
+def particle_pass(opts: RenderOptions, hdr, scene_depth, ppos, psize,
+                  pactive, cam_view, cam_proj, color=(0.9, 0.9, 0.6),
+                  alpha: float = 0.55):
+    """Particle billboards (particle.c:122-125) rastered by K1, one launch
+    for every env, depth-tested against the scene's G-buffer depth and
+    alpha-blended over the HDR buffer (the nearest particle per pixel
+    blends: one transparency layer). ppos (B, P, 3); psize a number, (P,)
+    or (B, P); pactive (P,) or (B, P)."""
+    W, H = opts.width, opts.height
+    rec, binned = particle_records(opts, ppos, psize, pactive, cam_view,
+                                   cam_proj)
+    gb = rasterize(rec, binned, W, H)
+    vis = (gb.tri_id >= 0) & (gb.depth < scene_depth)
+    c = color if torch.is_tensor(color) else mx.const(
+        list(color), hdr.device, hdr.dtype)
+    return torch.where(vis[..., None], hdr * (1.0 - alpha) + c * alpha, hdr)
+
+
 def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
                  cam_proj, lights: Lights, eye, far: float = 200.0,
                  shadow_moments=None, shadow_mvps=None, cascade_dists=None,
                  static_shadow=None, grain_noise=None, lut_volume=None,
-                 particles=None, textures=None, base_texture=None):
+                 particles=None, textures=None, base_texture=None,
+                 ssao_kernel_arr=None, _taps=None):
     """The canonical frame for every env: cam_view (B, 4, 4), cam_proj
     (4, 4), eye (B, 3). ``textures`` (TextureSets, by each vertex's
     tex_id) or ``base_texture`` (one (S, S, C) texture) shade the
     gather path. ``shadow_moments`` / ``shadow_mvps`` / ``cascade_dists``:
     a precomputed atlas, per env (B, C, S, S, 2) or shared (C, S, S, 2)
     (``render_frame_batch``); None fits and renders each env's cascades.
-    ``grain_noise`` and ``lut_volume`` are read only when their options
-    are on. Returns the LDR image (B, H, W, 3)."""
-    for flag, name in ((opts.model_msaa > 1, "model_msaa > 1"),
-                       (opts.ssao and opts.ssao_mode != "shift",
-                        f"ssao_mode={opts.ssao_mode!r}"),
-                       (opts.fog_noise, "fog_noise"),
-                       (opts.lighting_lut, "lighting_lut"),
-                       (not opts.edge_sobel, "laplace edges"),
-                       (particles is not None, "particles"),
-                       (opts.film_grain > 0 and grain_noise is not None,
-                        "film grain")):
-        if flag:
-            raise NotImplementedError(name)
+    ``particles``: (pos (B, P, 3), size, active (B, P)[, color[, alpha]]).
+    ``grain_noise`` ((S, S) or (S, S, 3), tiled) and ``lut_volume``
+    ((N, N, N, 3)) are read only when their options are on;
+    ``ssao_kernel_arr`` (16, 3) replaces the default hemisphere table of
+    ``ssao_mode="kernel"``. Returns the LDR image (B, H, W, 3).
+
+    ``_taps`` (the per-pass images of the JAX package's
+    ``render_frame_debug``) raises NotImplementedError."""
+    if _taps is not None:
+        raise NotImplementedError(
+            "render_frame(_taps=) and render_frame_debug (the pass "
+            "browser's per-pass images) are not ported yet")
+    kw = dict(far=far, shadow_moments=shadow_moments,
+              shadow_mvps=shadow_mvps, cascade_dists=cascade_dists,
+              static_shadow=static_shadow, grain_noise=grain_noise,
+              lut_volume=lut_volume, particles=particles, textures=textures,
+              base_texture=base_texture, ssao_kernel_arr=ssao_kernel_arr)
     if opts.internal_scale > 1:
         # the shading-rate lever: the 3D frame renders at 1/s² of the
         # pixels; only the final LDR upscale touches full resolution
@@ -603,14 +661,17 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
                                     height=max(opts.height // s, 8),
                                     internal_scale=1)
         img = render_frame(iopts, geom, cam_view, cam_proj, lights, eye,
-                           far=far, shadow_moments=shadow_moments,
-                           shadow_mvps=shadow_mvps,
-                           cascade_dists=cascade_dists,
-                           static_shadow=static_shadow,
-                           grain_noise=grain_noise, lut_volume=lut_volume,
-                           particles=particles, textures=textures,
-                           base_texture=base_texture)
+                           **kw)
         return post.upsample_bilinear(img, opts.height, opts.width)
+    if opts.model_msaa > 1:
+        # supersampling: the frame at f× the width and height (particles
+        # included), box-filtered down
+        f = opts.model_msaa
+        sopts = dataclasses.replace(opts, width=opts.width * f,
+                                    height=opts.height * f, model_msaa=1)
+        img = render_frame(sopts, geom, cam_view, cam_proj, lights, eye,
+                           **kw)
+        return post.downsample_pool(img, f)
     W, H = opts.width, opts.height
     dev = cam_view.device
 
@@ -628,16 +689,25 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         shadow_mvps, cascade_dists, base_texture=base_texture,
         textures=textures, static_shadow=static_shadow)
 
-    if edge_meta is not None:
+    if particles is not None:
+        ppos, psize, pactive = particles[:3]
+        pkw = dict(zip(("color", "alpha"), particles[3:5]))
+        hdr = particle_pass(opts, hdr, gb.depth, ppos, psize, pactive,
+                            cam_view, cam_proj, **pkw)
+
+    if opts.edge_sobel and edge_meta is not None:
         key, excl = edge_meta
         edges = post.sobel_edges(key / 8.0)
         ex = excl
         for ax, sh in ((1, 1), (1, -1), (2, 1), (2, -1)):
             ex = ex | torch.roll(excl, sh, dims=ax)
         edges = torch.where(ex, 0.0, edges)
-    else:
+    elif opts.edge_sobel:
         luma = torch.sum(vnrm * 0.5 + 0.5, -1) / 3.0
         edges = post.sobel_edges(luma)
+    else:
+        edges = post.laplace_edges(
+            torch.where(torch.isfinite(gb.depth), gb.depth, 1.0))
     edge_mask = torch.clamp(edges * 2.0, 0.0, 1.0)
 
     smaa_weights = None
@@ -650,7 +720,13 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         q_nrm = post.downsample_pool(vnrm, 4)
         q_nrm = q_nrm / torch.clamp(
             torch.sqrt(torch.sum(q_nrm * q_nrm, -1, keepdim=True)), min=1e-6)
-        ao_q = post.ssao_blur(post.ssao_shift(q_pos, q_nrm))
+        if opts.ssao_mode == "shift":
+            ao_raw = post.ssao_shift(q_pos, q_nrm)
+        else:
+            kern = ssao_kernel_arr if ssao_kernel_arr is not None \
+                else post.ssao_kernel(device=dev)
+            ao_raw = post.ssao(q_pos, q_nrm, kern)
+        ao_q = post.ssao_blur(ao_raw)
         ao = post.upsample2(post.upsample2(
             ao_q, ao_q.shape[1] * 2, ao_q.shape[2] * 2), H, W)
         hdr = hdr * (0.4 + 0.6 * ao[..., None])
@@ -668,8 +744,17 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         color = color + bloom * (opts.bloom_intensity
                                  * (1.0 - fog_f))[..., None]
     fc = mx.const(opts.fog_color, dev, color.dtype)
+    if opts.fog_noise:
+        # radial_fog_color (combine.frag:43-48): the fog tint darkens by
+        # the squared magnitude of the jittered noise field at the view
+        # position
+        nv = noise3d_field(vpos + noise_glsl(vpos)[..., None], 0.05) * 0.05
+        nfac = torch.clamp(torch.sum(nv * nv, -1), max=3.0) / 3.0
+        fc = fc * (1.0 - nfac[..., None])
     color = color * (1.0 - fog_f[..., None]) + fc * fog_f[..., None]
     color = post.contrast(color, opts.contrast)
+    if opts.lighting_lut and lut_volume is not None:
+        color = apply_lut(color, lut_volume)
     color = shade.tonemap_aces(color) if opts.tonemap_aces else \
         shade.tonemap_reinhard(color)
     if opts.outline_strength > 0:
@@ -678,6 +763,8 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
             fade = fade * (1.0 - 0.5 * torch.sum(smaa_weights, -1))
         color = color * (1.0 - opts.outline_strength * edge_mask
                          * fade)[..., None]
+    if opts.film_grain > 0 and grain_noise is not None:
+        color = post.film_grain(color, grain_noise, opts.film_grain)
     return shade.oetf_pq(color) if opts.hdr else shade.oetf_srgb(color)
 
 
@@ -717,3 +804,16 @@ def render_frame_dynamic_batch(opts: RenderOptions, geom: SceneGeometry,
     env fits and renders its own CSM atlas. Returns (B, H, W, 3)."""
     return render_frame(opts, geom, cam_views, cam_proj, lights, eyes,
                         far=far, **kw)
+
+
+def menu_blur(frame, opts: RenderOptions):
+    """The pause-menu backdrop (pipeline-builder.c:570-610, the checkpoint
+    of pipeline.c:530-567): the finished LDR frame (B, H, W, 3) at ¼
+    resolution, gaussian-blurred, contrast + 0.1, upsampled back to
+    (H, W)."""
+    h, w = frame.shape[1], frame.shape[2]
+    q = post.downsample2(post.downsample2(frame))
+    q = post.gauss_blur_v(post.gauss_blur_h(q))
+    q = post.contrast(q, opts.contrast + 0.1)
+    return post.upsample2(post.upsample2(q, q.shape[1] * 2, q.shape[2] * 2),
+                          h, w)

@@ -5,8 +5,14 @@ Stencils clamp at the image edge (texture clamp-to-edge semantics).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from .. import mathx as mx
+from ..device import resolve_device
+from ..ops.noise import jax_table
 
 
 def _pad_edge(img, ry: int, rx: int):
@@ -161,6 +167,24 @@ def sobel_edges(img_luma):
     return torch.sqrt(gx * gx + gy * gy)
 
 
+def laplace_edges(depth_lin, kernel: int = 3):
+    """|Laplacian| of the depth (edge_filter.glsl laplace path), (B, H, W):
+    the 4-neighbour stencil, or with ``kernel`` != 3 the 8-neighbour
+    ring."""
+    h, w = depth_lin.shape[1], depth_lin.shape[2]
+    pd = _pad_edge(depth_lin, 1, 1)
+    if kernel == 3:
+        acc = -4.0 * depth_lin
+        taps = ((0, 1), (0, -1), (1, 0), (-1, 0))
+    else:
+        acc = -8.0 * depth_lin
+        taps = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                     if dy or dx)
+    for dy, dx in taps:
+        acc = acc + _tap(pd, dy, dx, 1, 1, h, w)
+    return torch.abs(acc)
+
+
 def smaa_blend_weights(edges):
     """4-direction edge continuity weights (smaa-blend-weights.frag)."""
     h, w = edges.shape[1], edges.shape[2]
@@ -214,6 +238,71 @@ def ssao_shift(view_pos, view_normal, radius: float = 0.5,
     return 1.0 - torch.clamp(occ / (len(_SSAO_TAPS) * 0.5), 0.0, 1.0)
 
 
+SSAO_KERNEL_SIZE = 16  # shader_constants.h:11-12
+
+
+def ssao_kernel(draws=None, device=None):
+    """(16, 3) hemisphere samples scaled toward the centre (ssao.c:81).
+    ``draws`` (16, 3): uniform draws, x and y in [-1, 1), z in [0, 1).
+    None gives the JAX package's default table,
+    ``ssao_kernel(jax.random.PRNGKey(7))``, as committed
+    (``ops/noise.py::jax_table``), a per-device constant."""
+    dev = resolve_device(device)
+    if draws is None:
+        return mx.const(jax_table("ssao_kernel").tolist(), dev)
+    v = torch.as_tensor(draws, dtype=torch.float32, device=dev)
+    v = v / torch.sqrt(torch.sum(v * v, -1, keepdim=True))
+    scale = torch.linspace(0.1, 1.0, SSAO_KERNEL_SIZE, device=dev) ** 2
+    return v * scale[:, None]
+
+
+def ssao(view_pos, view_normal, kernel, radius: float = 0.5,
+         bias: float = 0.025):
+    """The reference's hemisphere-sample SSAO (ssao.frag:17-59): per pixel,
+    16 view-space offsets around its position, each projected to a pixel
+    through the local position gradient and compared with the depth
+    stored there; all 16 taps read by one index. view_pos, view_normal
+    (B, H, W, 3); kernel (16, 3). Returns (B, H, W) in [0, 1]
+    (1 = unoccluded)."""
+    B, H, W = view_pos.shape[:3]
+    dev = view_pos.device
+    xs = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    # per-pixel rotation of the kernel (the blue-noise texture analogue)
+    ang = torch.remainder(xs * 12.9898 + ys * 78.233, 2 * math.pi)
+    rnd = torch.stack([torch.cos(ang), torch.sin(ang),
+                       torch.zeros_like(ang)], -1)
+    n = view_normal
+    t = rnd - n * torch.sum(rnd * n, -1, keepdim=True)
+    t = t / torch.clamp(torch.sqrt(torch.sum(t * t, -1, keepdim=True)),
+                        min=1e-6)
+    b = torch.cross(n, t, dim=-1)
+
+    depth = view_pos[..., 2]
+    px = _pad_edge(view_pos[..., 0], 0, 1)
+    py = _pad_edge(view_pos[..., 1], 1, 0)
+    dzdx = (_tap(px, 0, 1, 0, 1, H, W) - _tap(px, 0, -1, 0, 1, H, W)) * 0.5
+    dzdy = (_tap(py, 1, 0, 1, 0, H, W) - _tap(py, -1, 0, 1, 0, H, W)) * 0.5
+    dzdx = torch.where(torch.abs(dzdx) < 1e-6, 1e-6, dzdx)
+    dzdy = torch.where(torch.abs(dzdy) < 1e-6, 1e-6, dzdy)
+    k = kernel.reshape(SSAO_KERNEL_SIZE, 1, 1, 1, 1, 3)
+    offs = t * k[..., 0] + b * k[..., 1] + n * k[..., 2]   # (16, B, H, W, 3)
+    sample = view_pos + offs * radius
+    du = (sample[..., 0] - view_pos[..., 0]) / dzdx
+    dv = (sample[..., 1] - view_pos[..., 1]) / dzdy
+    su = torch.clamp(xs + du, 0, W - 1).to(torch.int32)
+    sv = torch.clamp(ys + dv, 0, H - 1).to(torch.int32)
+    idx = (sv * W + su).long().permute(1, 0, 2, 3).reshape(B, -1)
+    stored = torch.gather(depth.reshape(B, H * W), 1, idx).reshape(
+        B, SSAO_KERNEL_SIZE, H, W).permute(1, 0, 2, 3)
+    sz = sample[..., 2]
+    range_check = torch.clamp(radius / torch.clamp(
+        torch.abs(depth[None] - stored), min=1e-4), 0.0, 1.0)
+    occ = torch.sum(torch.where(stored >= sz + bias, 1.0, 0.0)
+                    * range_check, dim=0)
+    return 1.0 - occ / SSAO_KERNEL_SIZE
+
+
 def ssao_blur(ao):
     """4×4 box blur of the ¼-res AO (pipeline-builder.c:457-486)."""
     acc = torch.zeros_like(ao)
@@ -228,3 +317,20 @@ def ssao_blur(ao):
 def contrast(color, amount):
     """Contrast about 0.5 (contrast.frag; combine.frag)."""
     return torch.clamp((color - 0.5) * (1.0 + amount) + 0.5, 0.0, 1.0)
+
+
+def film_grain(color, noise2d, strength=0.04):
+    """Blue-noise grain weighted by the inverse luma (combine.frag:50-63):
+    color (B, H, W, 3); noise2d (S, S) or (S, S, 3), tiled over frames
+    larger than it like the reference's REPEAT-sampled texture."""
+    h, w = color.shape[1], color.shape[2]
+    n = noise2d if noise2d.dim() == 3 else noise2d[..., None]
+    ry = -(-h // n.shape[0])
+    rx = -(-w // n.shape[1])
+    if ry > 1 or rx > 1:
+        n = n.repeat(ry, rx, 1)
+    n = n[:h, :w]
+    luma = torch.sum(color * mx.const([0.2126, 0.7152, 0.0722], color.device,
+                                      color.dtype), -1, keepdim=True)
+    weight = 1.0 - torch.clamp(luma, 0.0, 1.0)
+    return color + (n - 0.5) * strength * weight

@@ -10,7 +10,9 @@ by distance, compacts the valid clusters and transforms their rest-pose
 corners straight to clip space — one batched pass for every env. Tables
 with per-vertex or textured materials take the member-granularity
 assembly (``assemble_scene_geometry_batch``) and the per-pixel gather
-path. Both take skinned characters (``charskin.CharSkin``).
+path. Both take skinned characters (``charskin.CharSkin``). The single-env
+``assemble_scene_geometry`` (the game's own frame) bakes world-space
+normals and tangents per frame, skinned characters exact.
 """
 from __future__ import annotations
 
@@ -510,6 +512,62 @@ def assemble_scene_geometry_batch(rt: RenderTables, entity_mx,
         mat_fbm=rt.mat_fbm if mat else None,
         edge_id=rt.edge_id, face_entity=rt.face_entity, ent_rot=rot,
         ent_flat=rt.ent_flat if rt.flat_eligible else None,
+        shadow_faces=rt.shadow_faces, shadow_face_valid=sfv)
+
+
+def _unit_rows(v):
+    return v / torch.clamp(torch.sqrt(torch.sum(v * v, -1, keepdim=True)),
+                           min=1e-6)
+
+
+def assemble_scene_geometry(rt: RenderTables, entity_mx, entity_visible,
+                            cam_planes, cam_pos, skip_culling=None,
+                            char_skin=None, joint_mats=None) -> SceneGeometry:
+    """Single-env per-frame assembly (models_render model.c:969-998), the
+    game frame's: every instance vertex transformed by its entity matrix,
+    world-space normals (and tangents where the tables carry materials),
+    per-entity frustum cull and distance LOD, and the static shadow-caster
+    stream valid by visibility alone.
+
+    entity_mx (E, 4, 4), entity_visible (E,), cam_planes (6, 4), cam_pos
+    (3,). char_skin + joint_mats (C, J, 4, 4): the chars' vertex blocks
+    take LBS-deformed world positions and normals (both exact on this
+    path). Returns the geometry of one env as ``render_frame`` takes it at
+    B = 1: verts (1, V, 3), face_valid (1, T), shadow_face_valid (1, Ts);
+    normals, tangents and the material tables shared."""
+    m = entity_mx[:, :3, :][rt.vert_entity.long()]             # (V, 3, 4)
+    rot = m[:, :, :3]
+    wverts = (rot @ rt.verts[:, :, None])[..., 0] + m[:, :, 3]
+    wnorm = _unit_rows((rot @ rt.normals[:, :, None])[..., 0])
+    if char_skin is not None:
+        from .charskin import skin_vertex_rows
+
+        w_skin, snl = skin_vertex_rows(char_skin, joint_mats, entity_mx)
+        emx = entity_mx[char_skin.char_ents.long()]           # (C, 4, 4)
+        wn = _unit_rows(snl @ emx[:, :3, :3].transpose(-1, -2))
+        V = char_skin.n_verts
+        for c, r0 in enumerate(char_skin.vert_row0):
+            wverts[r0:r0 + V] = w_skin[c]
+            wnorm[r0:r0 + V] = wn[c]
+    wtan = None
+    if rt.any_material:
+        wt = _unit_rows((rot @ rt.tangent[:, :3, None])[..., 0])
+        wtan = torch.cat([wt, rt.tangent[:, 3:4]], dim=-1)
+
+    ent_ok, lod, _ = _entity_cull_lod(rt, entity_mx[None],
+                                      entity_visible[None], cam_planes[None],
+                                      cam_pos[None], skip_culling)
+    fe = rt.face_entity.long()
+    fv = ent_ok[:, fe] & (rt.face_lod[None] == lod[:, fe])
+    sfv = entity_visible[rt.shadow_face_entity.long()][None]
+    mat = rt.any_material
+    return SceneGeometry(
+        verts=wverts[None], normals=wnorm, faces=rt.faces, face_valid=fv,
+        base_color=rt.base_color, rough_metal=rt.rough_metal,
+        emission=rt.emission, uv=rt.uv if mat else None, tangent=wtan,
+        tex_id=rt.tex_id if mat else None,
+        local_pos=rt.verts if mat else None,
+        mat_fbm=rt.mat_fbm if mat else None, edge_id=rt.edge_id,
         shadow_faces=rt.shadow_faces, shadow_face_valid=sfv)
 
 

@@ -4,7 +4,7 @@ tonemap.glsl, oetf.glsl).
 
 Elementwise image math over batched (B, H, W[, C]) tensors, and the
 G-buffer attribute interpolation of the per-pixel gather path (one gather
-of a packed per-triangle record per pixel). PCF shadows are not ported.
+of a packed per-triangle record per pixel).
 """
 from __future__ import annotations
 
@@ -149,11 +149,15 @@ def spot_factor(l, light_dir, cutoff):
 
 def shade_pixels(world_pos, normal, view_pos, mat: Material, lights: Lights,
                  tile_mask, shadow_factor=None, ambient=0.1,
-                 shadow_tint=None):
+                 shadow_tint=None, fog_density=None):
     """Accumulate all lights (model.frag main loop, lighting.glsl:141-207)
     for world_pos/normal (B, H, W, 3), view_pos (B, 3), tile_mask
     (B, nty, ntx, L). Light 0 is the shadow caster: its diffuse is tinted
-    and its specular zeroed where shadowed."""
+    by ``shadow_tint`` (3,) and its specular zeroed where shadowed.
+
+    fog_density (B, H, W): material fog (use_3d_fog,
+    lighting.glsl:209-213): the diffuse blends toward the ambient fog
+    colour and the specular fades by (1 − density)."""
     H, W = world_pos.shape[1:3]
     dev = world_pos.device
     v = _unit(view_pos[:, None, None, :] - world_pos)
@@ -187,6 +191,11 @@ def shade_pixels(world_pos, normal, view_pos, mat: Material, lights: Lights,
     amb_tint = 1.0 * shadow_factor[..., None] \
         + shadow_tint * (1 - shadow_factor[..., None])
     total_d = total_d + ambient * mat.base_color * amb_tint
+    if fog_density is not None:
+        fd = fog_density[..., None]
+        amb_col = mx.const([ambient] * 3, dev, total_d.dtype)
+        total_d = total_d * (1.0 - fd) + amb_col * fd
+        total_s = total_s * (1.0 - fd)
     return total_d + total_s
 
 
@@ -244,6 +253,22 @@ def select_cascade(view_depth, cascade_dists):
     return torch.clamp(torch.sum(past, -1), max=cascade_dists.shape[-1] - 1)
 
 
+def _cascade_project(shadow_mvps, cascade_dists, world_pos, view_depth):
+    """Each pixel's cascade (select_cascade) and its light-space NDC there:
+    (casc (B, H, W), w, ok = w > 1e-3, uv (B, H, W, 2), depth d in
+    [0, 1]). shadow_mvps (B, C, 4, 4)."""
+    B = world_pos.shape[0]
+    casc = select_cascade(view_depth, cascade_dists)
+    p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
+    sps = (shadow_mvps[:, :, None, None] @ p[:, None, ..., None])[..., 0]
+    sp = torch.gather(sps, 1, casc[:, None, ..., None].expand(
+        B, 1, *casc.shape[1:], 4))[:, 0]                      # (B, H, W, 4)
+    w = sp[..., 3]
+    ok = w > 1e-3
+    ndc = sp[..., :3] / torch.where(ok, w, 1.0)[..., None]
+    return casc, w, ok, ndc[..., :2] * 0.5 + 0.5, ndc[..., 2] * 0.5 + 0.5
+
+
 def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
                view_depth, light_bleed=0.8):
     """Variance shadow maps (shadow.glsl:97-121): Chebyshev bound with
@@ -260,17 +285,8 @@ def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
     if shadow_mvps.dim() == 3:
         shadow_mvps = shadow_mvps[None].expand(B, *shadow_mvps.shape)
     n_casc = moments_maps.shape[1]
-    casc = select_cascade(view_depth, cascade_dists)          # (B, H, W)
-    p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
-    sps = (shadow_mvps[:, :, None, None] @ p[:, None, ..., None])[..., 0]
-    sp = torch.gather(sps, 1, casc[:, None, ..., None].expand(
-        B, 1, *casc.shape[1:], 4))[:, 0]                      # (B, H, W, 4)
-    w = sp[..., 3]
-    ok = w > 1e-3
-    ndc = sp[..., :3] / torch.where(ok, w, 1.0)[..., None]
-    uv = ndc[..., :2] * 0.5 + 0.5
-    d = ndc[..., 2] * 0.5 + 0.5
-
+    casc, _w, ok, uv, d = _cascade_project(shadow_mvps, cascade_dists,
+                                           world_pos, view_depth)
     s = moments_maps.shape[2]
     u = uv[..., 0] * (s - 1)
     v = (1.0 - uv[..., 1]) * (s - 1)
@@ -303,6 +319,52 @@ def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
     inb = ok & (uv[..., 0] >= 0) & (uv[..., 0] <= 1) \
         & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
     return torch.where(inb, p_lit, 1.0)
+
+
+def pcf_shadow(depth_maps, shadow_mvps, cascade_dists, world_pos,
+               view_depth, normal, light_dir, kernel: int = 5):
+    """PCF (shadow.glsl:20-50, 167-168): k×k depth compares in the pixel's
+    cascade with the slope-scaled bias max(0.0005·(1 − N·L), 0.0008) ·
+    max(w·0.02, 1), at full resolution.
+
+    depth_maps (B, C, S, S) per env or (C, S, S) shared; shadow_mvps
+    (B, C, 4, 4) or (C, 4, 4); cascade_dists (C,); world_pos, normal
+    (B, H, W, 3); view_depth (B, H, W); light_dir (3,). The k² taps are
+    read by one index. Returns (B, H, W)."""
+    B = world_pos.shape[0]
+    shared = depth_maps.dim() == 3
+    if shadow_mvps.dim() == 3:
+        shadow_mvps = shadow_mvps[None].expand(B, *shadow_mvps.shape)
+    n_casc, s = depth_maps.shape[-3], depth_maps.shape[-1]
+    casc, w, ok, uv, d = _cascade_project(shadow_mvps, cascade_dists,
+                                          world_pos, view_depth)
+    ndl = torch.clamp(torch.sum(normal * -light_dir, -1), 0.0, 1.0)
+    bias = torch.clamp(0.0005 * (1.0 - ndl), min=0.0008) \
+        * torch.clamp(w * 0.02, min=1.0)
+    u = torch.clamp(uv[..., 0] * (s - 1), 0.0, s - 1.0)
+    v = torch.clamp((1.0 - uv[..., 1]) * (s - 1), 0.0, s - 1.0) \
+        + casc.float() * s
+    ui = u.to(torch.int32)
+    vi = torch.clamp(v.to(torch.int32), max=n_casc * s - 1)
+    r = kernel // 2
+    d_ = torch.arange(-r, r + 1, device=ui.device, dtype=torch.int32)
+    dy = d_.repeat_interleave(kernel).reshape(-1, 1, 1, 1)
+    dx = d_.repeat(kernel).reshape(-1, 1, 1, 1)
+    su = torch.clamp(ui + dx, 0, s - 1)
+    sv = torch.minimum(torch.maximum(vi + dy, casc * s), (casc + 1) * s - 1)
+    idx = (sv * s + su).long()                               # (k², B, H, W)
+    if shared:
+        stored = depth_maps.reshape(-1)[idx]
+    else:
+        stored = torch.gather(
+            depth_maps.reshape(B, -1), 1,
+            idx.permute(1, 0, 2, 3).reshape(B, -1)).reshape(
+                B, kernel * kernel, *ui.shape[1:]).permute(1, 0, 2, 3)
+    lit = torch.sum(torch.where((d - bias)[None] <= stored, 1.0, 0.0), dim=0)
+    sf = lit / float(kernel * kernel)
+    inb = ok & (uv[..., 0] >= 0) & (uv[..., 0] <= 1) \
+        & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
+    return torch.where(inb, sf, 1.0)
 
 
 def tonemap_reinhard(x):

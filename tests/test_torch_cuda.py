@@ -396,6 +396,130 @@ def test_render_no_host_sync_on_card(cuda_device, path):
     assert torch.equal(img, img2)
 
 
+@pytest.fixture(scope="module")
+def option_inputs():
+    """K1/K2 inputs of the game's own frame and of two render options
+    (chip_smoke.py's worlds): the demo's 640 × 360 frame after 2 frames of
+    game_frame_step (its particle billboard records, behind-camera quads
+    included, and its gather-path surface records), the skinned flagship
+    at 2 envs under ``model_msaa`` 2 (the 512² extras records) and under
+    ``shadow_msaa`` 2 (the (2, 2,048, 512) cascade atlas). Skips without a
+    CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest "
+                    "tests/test_torch_cuda.py -m cuda --noconftest)")
+    import dataclasses
+
+    import chip_smoke as CS
+    from clap_tpu_torch.engine.frame import game_frame_step
+    from clap_tpu_torch.render import pipeline as P
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    dev = torch.device("cuda", 0)
+    g = CS.build_game_frame(dev)
+    r, gs = g["renderer"], g["gs"]
+    for _ in range(2):
+        gs, _img = game_frame_step(g["gw"], r, gs, g["ins"])
+    st = gs.engine
+    view = r.view(st)
+    pos = gs.particles.pos.reshape(1, -1, 3).clone()
+    cam = st.camera.pos[0]
+    pos[0, :8] = cam + 0.5 * (cam - st.pos[0, 1])   # behind the camera
+    rec, binned = P.particle_records(r.opts, pos, 0.1,
+                                     r.particle_active[None], view, r.proj)
+    out = {"particles": R.kernel_inputs(rec, binned, 640, 360)}
+    geom = r.geometry(st, view, gs.joint_mats)
+    clip = P.clip_transform(geom.verts, view, r.proj)
+    rec, binned = P.gather_records(r.opts, geom, clip)[:2]
+    out["game_surface"] = R.kernel_inputs(rec, binned, 640, 360)
+    w = CS.build_slice(dev, n_envs=2)
+    static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                w["lights"].direction[0], shadow_size=1024,
+                                far=200.0)
+    fr = CS.make_renderer(w, static)
+    gs = w["gs"]
+    msaa = dataclasses.replace(fr.opts, width=512, height=512)
+    _, rec, binned, _, _, _ = CS.frame_records(fr, gs.engine, gs.joint_mats,
+                                               msaa)
+    out["msaa_512"] = R.kernel_inputs(rec, binned, 512, 512)
+    smsaa = dataclasses.replace(fr.opts, shadow_msaa=2)
+    *_, srec, sbin, dims = CS.frame_records(fr, gs.engine, gs.joint_mats,
+                                            smsaa)
+    assert dims[:2] == (512, 2048)
+    out["shadow_msaa_atlas"] = R.kernel_inputs(srec, sbin, *dims,
+                                               depth_only=True)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["particles", "game_surface", "msaa_512",
+                                  "shadow_msaa_atlas"])
+def test_kernel_bit_exact_on_option_inputs_on_card(option_inputs, path):
+    """K1 on the game frame's particle billboards and surface records and
+    on the model_msaa 2 records, K2 on the shadow_msaa 2 atlas: bit-exact
+    against the plain versions."""
+    args = option_inputs[path]
+    depth_only = path == "shadow_msaa_atlas"
+    kernel, plain = (R.raster_depth, R.raster_depth_ref) if depth_only \
+        else (R.raster_tile, R.raster_tile_ref)
+    before = kernel.launches
+    k = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    r = plain(*args)
+    k, r = (k, r) if isinstance(k, tuple) else ((k,), (r,))
+    assert bool(torch.isfinite(r[0]).any())
+    for a, b in zip(k, r):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["game_step", "textured_render",
+                                  "game_frame_render"])
+def test_step_and_render_no_host_sync_on_card(cuda_device, path):
+    """game_step (the flagship's wiring at 4 envs, camera occlusion), the
+    textured render (the gather path at 4 envs) and the game's own frame
+    (GameFrameRenderer: particles, grain, single-env assembly, 640 × 360)
+    make no synchronizing CUDA call after their first (sync-debug
+    "error")."""
+    import chip_smoke as CS
+    from clap_tpu_torch.engine.game import game_step
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    dev = cuda_device
+    if path == "game_step":
+        w = CS.build_slice(dev, 4)
+
+        def call():
+            return game_step(w["gw"], w["gs"], w["ins"]).engine.pos
+    elif path == "textured_render":
+        w = CS.build_slice(dev, 4, textured=True)
+        static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                    w["lights"].direction[0],
+                                    shadow_size=1024, far=200.0)
+        renderer = CS.make_renderer(w, static)
+
+        def call():
+            return renderer(w["gs"].engine, w["gs"].joint_mats)
+    else:
+        g = CS.build_game_frame(dev)
+        gs = g["gs"]
+
+        def call():
+            return g["renderer"](gs.engine, gs.particles, None,
+                                 gs.joint_mats)
+    out = call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out2 = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out2).all())
+    assert torch.equal(out, out2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,steps", CA_SHAPES,
                          ids=lambda v: "x".join(map(str, v))

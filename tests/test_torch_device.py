@@ -15,6 +15,9 @@ from clap_tpu_torch.engine.gamelogic import game_config_empty, game_state_init
 from clap_tpu_torch.engine.state import engine_state_init
 from clap_tpu_torch.engine.step import Inputs, inputs_zero
 from clap_tpu_torch.ops.ca2d import CA_TEST, ca2d_seed
+from clap_tpu_torch.ops.noise import blue_noise2d
+from clap_tpu_torch.render.lut import bake_lut, lut_find
+from clap_tpu_torch.render.post import ssao_kernel
 from clap_tpu_torch.render.lights import lights_empty
 from clap_tpu_torch.render.raster import (expand_corners_major,
                                           expand_corners_record)
@@ -91,6 +94,13 @@ BUILDERS = {
     "build_full_frame": lambda: _chip_smoke().build_full_frame(
         None, nr_v=12, width=64, height=48),
     "build_batched": lambda: _chip_smoke().build_batched(None, 2, 32),
+    "build_game_frame": lambda: _chip_smoke().build_game_frame(
+        None, 64, 32, scene=dict(nr_v=12, side=16.0, max_entities=32)),
+    "blue_noise2d": lambda: blue_noise2d(),
+    "blue_noise2d_of_draws": lambda: blue_noise2d(
+        4, np.zeros((3, 4, 4), np.float32)),
+    "ssao_kernel": lambda: ssao_kernel(),
+    "bake_lut": lambda: bake_lut(lut_find("identity"), 4),
     "from_numpy": lambda: from_numpy(Inputs(
         motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
         cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),

@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 47 and bad == "[]"
+    assert int(n) >= 49 and bad == "[]"
 
 
 @pytest.mark.parametrize("module", ["clap_tpu_torch.render.charskin",
@@ -56,6 +56,31 @@ def test_frame_batch_and_host_flag_modules_import_no_jax(module):
     """The modules of the corner streams, the shared-scene batch, the
     bilinear upsample and the host-side body flags, each on its own."""
     test_skinned_and_textured_modules_import_no_jax(module)
+
+
+@pytest.mark.parametrize("module", ["clap_tpu_torch.ops.noise",
+                                    "clap_tpu_torch.render.lut",
+                                    "clap_tpu_torch.ops.particles",
+                                    "clap_tpu_torch.render.shade",
+                                    "clap_tpu_torch.render.scenerender",
+                                    "clap_tpu_torch.engine.frame"])
+def test_option_and_game_frame_modules_import_no_jax(module):
+    """The modules of the render options and of the game's own frame
+    (device noise, LUTs, billboards, PCF, single-env assembly,
+    GameFrameRenderer), each on its own."""
+    test_skinned_and_textured_modules_import_no_jax(module)
+
+
+def test_committed_tables_load_without_jax():
+    """The JAX package's PRNG tables are read from the committed file, with
+    no JAX in the process."""
+    code = ("import sys; from clap_tpu_torch.ops.noise import jax_table; "
+            "assert jax_table('ssao_kernel').shape == (16, 3); "
+            "assert jax_table('blue_noise2d').shape == (64, 64, 3); "
+            "assert 'jax' not in sys.modules")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
 
 
 def test_chip_smoke_imports_no_jax():

@@ -2,6 +2,7 @@
 """Where a composed frame's time goes on one CUDA card (torch.profiler):
 
     python3 tools/torch_profile_frame.py [--frames N] [--top K]
+                                         [--only GROUP[,GROUP...]]
 
 For each of chip_smoke.py's composed worlds at 64 envs × 256², the
 skinned flagship (phase 5), the textured frame on the per-pixel gather
@@ -12,7 +13,11 @@ each: ``step_and_render``, ``game_step`` alone, and the render alone
 each of the JAX bench's single-frame and shared-scene configurations
 (phases 9-11: ``full_frame`` and ``full_frame_dense`` at 720p,
 ``full_frame_production`` at 720p, ``batched_render`` 64 × 256²), after 2
-warm-up calls. Each window is timed unprofiled (host clock around
+warm-up calls; then the game's own frame (phase 13: 1 env × 640 × 360,
+``game_frame_step``, ``game_step`` alone and the render alone) and the
+flagship's render under the heaviest options (phase 14: ``model_msaa`` 2,
+PCF, ``fog_noise``, ``material_fog``). ``--only`` picks groups: composed,
+single, game, options (default all). Each window is timed unprofiled (host clock around
 synchronised work), then run again under the profiler. Prints per window the wall ms per call, the device busy
 ms per call (the summed time of every kernel, copy and fill on the card),
 its share of the unprofiled wall time, the kernels per call, and the K
@@ -83,7 +88,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--only", default="composed,single,game,options")
     a = ap.parse_args()
+    groups = set(a.only.split(","))
 
     import torch
 
@@ -110,9 +117,9 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0].strip()
     print(f"card: {card}", flush=True)
     res = {"card": card, "frames": a.frames}
-    for tag, textured, scale in (("skinned flagship", False, 1),
-                                 ("textured frame", True, 1),
-                                 ("flagship at internal_scale 2", False, 2)):
+    composed = (("skinned flagship", False, 1), ("textured frame", True, 1),
+                ("flagship at internal_scale 2", False, 2))
+    for tag, textured, scale in composed if "composed" in groups else ():
         w = CS.build_slice(dev, textured=textured)
         w["opts"] = dataclasses.replace(w["opts"], internal_scale=scale)
         static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
@@ -157,18 +164,68 @@ def main() -> int:
                                           w["proj"], w["lights"], w["eyes"],
                                           far=100.0)
 
-    for tag, make in (
-            ("full_frame 720p", lambda: full_frame()),
-            ("full_frame_dense 720p", lambda: full_frame(
-                nr_v=240, n_cubes=256, raster_cap=4096)),
-            ("full_frame_production 720p", production),
-            (f"batched_render {CS.N_SLICE} x {CS.RES}^2", batched)):
+    single = (("full_frame 720p", lambda: full_frame()),
+              ("full_frame_dense 720p", lambda: full_frame(
+                  nr_v=240, n_cubes=256, raster_cap=4096)),
+              ("full_frame_production 720p", production),
+              (f"batched_render {CS.N_SLICE} x {CS.RES}^2", batched))
+    for tag, make in single if "single" in groups else ():
         fn = make()
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
         window(tag, fn, a.frames, a.top, res)
         del fn
+        torch.cuda.empty_cache()
+    if "game" in groups:
+        from clap_tpu_torch.engine.frame import game_frame_step
+
+        g = CS.build_game_frame(dev)
+        r, box = g["renderer"], {"gs": g["gs"]}
+
+        def gframe():
+            box["gs"], _ = game_frame_step(g["gw"], r, box["gs"], g["ins"])
+
+        def gstep():
+            box["gs"] = game_step(g["gw"], box["gs"], g["ins"],
+                                  camera_occlusion=True)
+
+        def grender():
+            s = box["gs"]
+            r(s.engine, s.particles, None, s.joint_mats)
+
+        for _ in range(2):
+            gframe()
+        torch.cuda.synchronize()
+        print("game frame (1 env x 640x360, demo/testbed.py --render):",
+              flush=True)
+        for name, fn in (("game_frame_step", gframe), ("game_step", gstep),
+                         ("render", grender)):
+            window(f"game frame {name}", fn, a.frames, a.top, res)
+        del g, r, box
+        torch.cuda.empty_cache()
+    if "options" in groups:
+        w = CS.build_slice(dev)
+        static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                    w["lights"].direction[0],
+                                    shadow_size=1024, far=200.0)
+        gs = game_step(w["gw"], w["gs"], w["ins"])
+        for tag, kw in (("model_msaa 2", dict(model_msaa=2)),
+                        ("pcf", dict(shadow_vsm=False)),
+                        ("fog_noise", dict(fog_noise=True)),
+                        ("material_fog", dict(material_fog=True))):
+            rv = CS.make_renderer(dict(w, opts=dataclasses.replace(
+                w["opts"], **kw)), static)
+
+            def orender(rv=rv):
+                rv(gs.engine, gs.joint_mats)
+
+            for _ in range(2):
+                orender()
+            torch.cuda.synchronize()
+            window(f"flagship render {tag} ({CS.N_SLICE} x {CS.RES}^2)",
+                   orender, a.frames, a.top, res)
+        del w, static, gs
         torch.cuda.empty_cache()
     print(card, flush=True)
     print(json.dumps(res))
