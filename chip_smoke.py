@@ -104,6 +104,21 @@ Phases, one or more lines each:
     different from the default frame. K1 bit-exact on model_msaa 2's 512²
     records and K2 on shadow_msaa 2's (64, 2,048, 512) atlas, timed and
     bounded.
+15. level — the authored level demo/level57.json through the port's loader
+    and asset pack (scene/assets57.py), wired as demo/platformer.py:46-66
+    (the demo rig, footstep SFX, the switch/platform rules): the load's
+    host seconds and counts; game_step of the scripted walk (Tab at 2/3)
+    at 4,096 envs × 80 frames, wall and device busy ms, env-steps/s, the
+    frame each switch latches, env 0 against the port's CPU run (made in a
+    worker process meanwhile: the same latch frames, positions within
+    1e-3), the two camera slots; the rotating beam (per-env triangles
+    following the entity's full transform; env b turned by 2π·b/1,024)
+    and a 4-character roster at 1,024 envs, held the same way; the level's
+    frame at 1 env × 640 × 360 (game_frame_step) and at 64 envs × 256²
+    (step_and_render): 1 warm-up + 5 wall-timed + 2 profiled frames, peak
+    memory, launches, K1 and K2 bit-exact on each frame's own inputs,
+    timed and bounded, the 64-env frame against the plain CPU path (PSNR
+    >= 35 dB), render_frame_debug's taps on the 640 × 360 frame.
 
 Each new path's kernel launches are counted from 0 over its driven run.
 
@@ -111,7 +126,7 @@ Then a JSON line of the kernels (``raster_tile`` / ``raster_depth`` with
 each path's launches and kernel numbers as prefixed fields: ``textured_``,
 ``full_frame_``, ``full_frame_dense_``, ``production_``, ``batched_``,
 ``shading_rate_``, ``game_frame_``, ``particles_``, ``msaa_``,
-``shadow_msaa_``), the
+``shadow_msaa_``, ``level_``, ``level_batch_``), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
@@ -156,6 +171,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     sync = torch.cuda.synchronize
+    laps = {}                        # phase(s) -> host seconds
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - clock[0], 1)
+        clock[0] = now
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(
@@ -175,6 +197,10 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}, nvcc "
         f"{nvcc.stdout.strip().splitlines()[-1]}; python "
         f"{sys.version.split()[0]}; matmul precision highest, TF32 off")
+    raw, avg = check_device_busy(dev)
+    log(f"phase 1 device busy reader: the profiler's raw CUDA events sum "
+        f"{raw:.4f} ms, key_averages() {avg:.4f} ms on 20 matmuls, a fill "
+        f"and a copy (torch {torch.__version__})")
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -360,27 +386,43 @@ def main() -> int:
 
     del d5, gs, imgs, renderer, st, geom, rec, binned, tile_args
     torch.cuda.empty_cache()
+    lap("1-5")
 
     # ---------------------------------------------------------------- 6
     ca = run_ca_phase(dev, smi, require)
+    lap("6")
 
     # ---------------------------------------------------------------- 7
     run_skinning_phase(dev, smi, require)
+    lap("7")
 
     # ---------------------------------------------------------------- 8
     tex = run_textured_phase(dev, smi, require, sync, check_tile,
                              check_depth)
+    lap("8")
 
     # ------------------------------------------------------------ 9-12
     ff = run_full_frame_phase(dev, smi, require, check_tile, check_depth)
+    lap("9")
     prod = run_production_phase(dev, smi, require, check_tile, check_depth)
+    lap("10")
     bat = run_batched_phase(dev, smi, require, check_tile, check_depth)
+    lap("11")
     rate = run_shading_rate_phase(dev, smi, sync, require, check_tile,
                                   check_depth)
+    lap("12")
 
     # ----------------------------------------------------------- 13-14
     game = run_game_frame_phase(dev, smi, require, check_tile, check_depth)
+    lap("13")
     opt = run_options_phase(dev, smi, require, check_tile, check_depth)
+    lap("14")
+
+    # -------------------------------------------------------------- 15
+    lvl = run_level_phase(dev, smi, require, check_tile, check_depth)
+    lap("15")
+    log(f"phase host seconds: {json.dumps(laps)}, total "
+        f"{sum(laps.values()):.0f} s")
 
     def fields(prefix, launches, rep):
         """A path's launches and one kernel report as extra fields."""
@@ -414,6 +456,10 @@ def main() -> int:
             f.update(fields("game_frame_bake", None, game["bake"]))
             f.update(fields("shadow_msaa", opt["shadow_msaa_launches"][k],
                             opt["shadow_msaa"]))
+        # the authored level: its 640 x 360 frame and its 64-env batch
+        f.update(fields("level", lvl["frame_launches"][k], lvl[rep]))
+        f.update(fields("level_batch", lvl["batch_launches"][k],
+                        lvl[rep + "b"]))
         return f
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
@@ -1096,27 +1142,68 @@ def driven_run(reps, unit="frames"):
     return f"1 warm-up, {reps} wall-timed and {reps} profiled {unit}"
 
 
+def _raw_busy_ns(prof):
+    """The summed duration of the CUDA activity among ``prof``'s raw
+    events. ``prof.profiler.kineto_results`` is private to torch.profiler:
+    ``check_device_busy`` holds this sum against ``key_averages()``'s once a
+    run, and a torch without the attribute stops the script here."""
+    from torch.autograd import DeviceType
+
+    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if res is None:
+        raise RuntimeError("torch.profiler has no kineto_results in this "
+                           "torch: device_busy_ms cannot read its raw events")
+    return sum(e.duration_ns() for e in res.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
 def device_busy_ms(fn):
     """The card's busy ms in one call of ``fn()``: the summed time of every
-    kernel, copy and fill under torch.profiler. A frame queues more
+    kernel, copy and fill under torch.profiler (CUDA activity), read from
+    its raw events (the same sum as ``key_averages()``, which takes 10-20 s
+    to build for the 54,000 kernels of a level frame). A frame queues more
     kernels than the launch queue holds, so CUDA events around it measure
     the host's pace as well; the profiler's sum does not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = _raw_busy_ns(prof)
+    if ns <= 0:
+        raise RuntimeError("the profiler shows no device time")
+    return ns / 1e6
+
+
+def check_device_busy(dev):
+    """Hold ``device_busy_ms``'s raw sum against ``key_averages()``'s (the
+    CUDA rows' self device time) on a small workload of kernels, a fill and
+    a copy: they must agree within 1 us or 0.1 %. Returns (raw ms,
+    key_averages ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    a = torch.randn(512, 512, device=dev)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(20):
+            a = torch.tanh(a @ a * 1e-3)
+        torch.zeros(1 << 20, device=dev)
+        a.cpu()
         torch.cuda.synchronize()
-    us = 0.0
+    raw = _raw_busy_ns(prof) / 1e6
+    avg = 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    if us <= 0:
-        raise RuntimeError("the profiler shows no device time")
-    return us / 1e3
+            avg += (e.self_cuda_time_total if t is None else t) / 1e3
+    require(raw > 0 and abs(raw - avg) <= max(1e-3, 1e-3 * avg),
+            f"the profiler's raw device sum {raw:.4f} ms equals "
+            f"key_averages()'s {avg:.4f} ms")
+    return raw, avg
 
 
 def frame_times(fn, reps):
@@ -1743,6 +1830,506 @@ def run_options_phase(dev, smi, require, check_tile, check_depth, reps=3):
     return dict(variants=out, msaa=k1, shadow_msaa=k2,
                 msaa_launches=out["model_msaa 2"]["launches"],
                 shadow_msaa_launches=out["shadow_msaa 2"]["launches"])
+
+
+# the rotating beam of tests/test_rotating_platform.py:20-32: collision that
+# follows its entity's full transform
+ROTATING_BEAM = {
+    "name": "rot_platform",
+    "collision_follows_entities": True,
+    "collision_follows_rotation": True,
+    "model": [
+        {"name": "hero", "gltf": "box:0.6,2.0,0.6",
+         "physics": {"geom": "capsule", "mass": 70.0},
+         "character": [{"name": "hero1", "position": [2.5, 4.0, 0.0]}]},
+        {"name": "beam", "gltf": "box:6.0,0.4,1.0",
+         "physics": {"geom": "trimesh"},
+         "entity": [{"name": "beam.0", "position": [0, 2.0, 0]}]},
+    ],
+}
+LEVEL_FRAMES = 80          # the scripted walk; control switches at 2/3
+# the beam: the character's drop onto it (or past its top); the roster:
+# a few frames of the 4-character batched move
+VARIANT_FRAMES = {"beam": 45, "roster4": 8}
+LEVEL_WALL_FRAMES = 3      # each render's wall-timed frames
+
+
+def level_scene(dev, variant="level57"):
+    """An authored scene through the port's loader on ``dev``:
+    ``level57`` (demo/level57.json with the level's asset pack),
+    ``roster4`` (the level with two more characters, a roster of 4) or
+    ``beam`` (the rotating beam). Returns (LoadedScene, seconds)."""
+    from pathlib import Path
+
+    from clap_tpu_torch.scene.assets57 import asset_loader, make_box_gltf
+    from clap_tpu_torch.scene.loader import load_scene
+
+    if variant == "beam":
+        doc, kw = json.dumps(ROTATING_BEAM), dict(max_entities=8,
+                                                  max_bodies=2)
+
+        def loader(name):
+            dims = [float(x) for x in name.split(":")[1].split(",")]
+            return make_box_gltf(*dims).encode()
+    else:
+        level = json.loads((Path(__file__).resolve().parent / "demo"
+                            / "level57.json").read_text())
+        if variant == "roster4":
+            level["model"][3]["character"] += [
+                {"name": "hero.2", "position": [-5.0, 0.0, 0.0]},
+                {"name": "hero.3", "position": [-7.5, 0.0, 0.0]}]
+        doc, kw, loader = json.dumps(level), dict(max_entities=16,
+                                                  max_bodies=4), asset_loader
+    t0 = time.perf_counter()
+    scene = load_scene(doc, asset_loader=loader, device=dev, **kw)
+    return scene, time.perf_counter() - t0
+
+
+def build_level(dev, n_envs, variant="level57"):
+    """The level's game on ``dev`` as demo/platformer.py:46-66 wires it:
+    the demo rig on every character, footstep SFX, the switch/platform
+    rules of the level's gameplay blocks, ``n_envs`` envs at the loaded
+    state. The beam has no gameplay blocks and no rigs; env b turns it by
+    2π·b/n_envs about y, the character above x = 2.5. Returns a dict:
+    scene, load_s, gw, gs."""
+    import torch
+
+    from clap_tpu_torch.anim.system import (anim_instances_init,
+                                            anim_sfx_from_names)
+    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
+    from clap_tpu_torch.engine.gamelogic import game_state_init
+    from clap_tpu_torch.device import resolve_device
+    from clap_tpu_torch.scene import testbed as tbm
+
+    dev = resolve_device(dev)
+    scene, load_s = level_scene(dev, variant)
+    C = scene.cfg.char_params.body.shape[0]
+    if variant == "beam":
+        gw = GameWorld(scene=scene.cfg)
+        gs = tbm.replicate_state(GameSessionState(engine=scene.state0),
+                                 n_envs)
+        ang = torch.arange(n_envs, device=dev) * (2 * math.pi / n_envs)
+        gs.engine.rot[:, 1] = torch.stack(
+            [torch.zeros_like(ang), torch.sin(ang / 2),
+             torch.zeros_like(ang), torch.cos(ang / 2)], -1)
+    else:
+        sk, lib, acfg = tbm.build_demo_rig(device=dev)
+        clips = ["idle", "motion", "jump", "fall"]
+        gw = GameWorld(scene=scene.cfg, game=scene.game, anim=acfg,
+                       anim_sk=sk, anim_lib=lib,
+                       sfx=anim_sfx_from_names(clips, motion_segments=4,
+                                               device=dev))
+        K = scene.game.switch_entity.shape[0]
+        gs = tbm.replicate_state(GameSessionState(
+            engine=scene.state0, game=game_state_init(K, C, device=dev),
+            anim=anim_instances_init(C, with_sfx=True, device=dev),
+            joint_mats=torch.eye(4, device=dev).repeat(C, 3, 1, 1),
+            sfx_events=torch.zeros(C, 2, dtype=torch.bool, device=dev)),
+            n_envs)
+    return dict(scene=scene, load_s=load_s, gw=gw, gs=gs)
+
+
+def drive_level(w, frames, record=(0,), timed=False, profiled=0):
+    """demo/platformer.py's scripted walk over every env: the controlled
+    character walks +x (a one-hot of each env's control slot, made on the
+    device), Tab at 2/3 of ``frames`` cycles control; game_step with the
+    camera occlusion on. A scene without gameplay blocks (the beam) gets
+    no input, as tests/test_rotating_platform.py drives it. Records envs
+    ``record``'s character body positions per frame and each env's first
+    frame with each switch on (-1: never), on the device. ``timed``: each frame's wall ms (host clock,
+    a synchronize after it); ``profiled``: that many more frames, each
+    under device_busy_ms (not in the trajectory). Returns a dict: gs,
+    traj (frames, R, C, 3), latch (B, K), wall, busy."""
+    import torch
+
+    from clap_tpu_torch.engine.game import game_step
+    from clap_tpu_torch.engine.step import Inputs
+
+    gw, gs = w["gw"], w["gs"]
+    dev = gs.engine.pos.device
+    B, C = gs.engine.chars.state.shape
+    chars = torch.arange(C, device=dev)
+    body = w["scene"].cfg.char_params.body.long()
+    rec = torch.as_tensor(record, device=dev)
+    traj = torch.zeros(frames, len(record), C, 3, device=dev)
+    has_game = gs.game is not None
+    K = gs.game.switch_on.shape[1] if has_game else 0
+    latch = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    frame_ids = torch.arange(frames, dtype=torch.int32, device=dev)
+    tab = (torch.zeros(B, dtype=torch.bool, device=dev),
+           torch.ones(B, dtype=torch.bool, device=dev))
+    zero = dict(jump=torch.zeros(B, C, dtype=torch.bool, device=dev),
+                cam_delta=torch.zeros(B, 3, device=dev),
+                dash=torch.zeros(B, C, dtype=torch.bool, device=dev))
+    switch_frame = frames * 2 // 3
+
+    def one(gs, f):
+        ctrl = gs.game.control.long()[:, None] if has_game \
+            else torch.full((B, 1), -1, dtype=torch.long, device=dev)
+        walk = torch.stack([(chars[None] == ctrl).float(),
+                            torch.zeros(B, C, device=dev)], -1)
+        return game_step(gw, gs, Inputs(motion=walk, **zero),
+                         next_character=tab[f == switch_frame],
+                         camera_occlusion=True)
+
+    wall = []
+    for f in range(frames):
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        gs = one(gs, f)
+        if timed:
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        traj[f] = gs.engine.phys.pos[rec][:, body]
+        if has_game:
+            latch = torch.where((latch < 0) & gs.game.switch_on,
+                                frame_ids[f], latch)
+    busy = []
+    for _ in range(profiled):
+        out = {}
+
+        def fn():
+            out["gs"] = one(gs, frames)
+        busy.append(device_busy_ms(fn))
+        gs = out["gs"]
+    return dict(gs=gs, traj=traj, latch=latch, wall=wall, busy=busy)
+
+
+def level_renderers(scene, dev, frame_size=(640, 360), res=RES):
+    """The level's renderers: its tables and texture layers from
+    scene_render_setup (the crate's checker: the gather path), the
+    GameFrameRenderer of one env at ``frame_size`` and the SceneRenderer
+    of an env batch at ``res``². Returns (game frame renderer, batch
+    renderer)."""
+    from clap_tpu_torch.engine.frame import GameFrameRenderer, SceneRenderer
+    from clap_tpu_torch.render.pipeline import RenderOptions
+    from clap_tpu_torch.scene.content import scene_render_setup
+
+    rt, ts = scene_render_setup(scene, device=dev)
+    skip = scene.cfg.entities.skip_culling
+    frame = GameFrameRenderer(rt, scene.lights,
+                              RenderOptions(width=frame_size[0],
+                                            height=frame_size[1],
+                                            film_grain=0.0),
+                              skip_culling=skip, textures=ts)
+    batch = SceneRenderer(rt, scene.lights,
+                          RenderOptions(width=res, height=res,
+                                        shadow_size=256, film_grain=0.0),
+                          skip_culling=skip, lod_scale=res / 720.0,
+                          textures=ts)
+    return frame, batch
+
+
+def level_cpu_references(n_variant):
+    """The port's CPU runs that phase 15 holds the card against, made in a
+    worker process while the card runs: env 0 of the level's scripted walk
+    (LEVEL_FRAMES frames) and the variants' recorded envs (the beam's env
+    0 and its env turned 90 degrees of ``n_variant``, the roster's env 0).
+    Returns {name: (trajectory, latch frames)} as numpy arrays."""
+    import torch
+
+    from clap_tpu_torch.bridge import tree_map
+
+    torch.set_num_threads(2)
+    d = drive_level(build_level("cpu", 1), LEVEL_FRAMES)
+    out = {"level57": (d["traj"].numpy(), d["latch"].numpy())}
+    for variant, rec in (("beam", (0, n_variant // 4)), ("roster4", (0,))):
+        w = build_level("cpu", n_variant, variant)
+        w["gs"] = tree_map(lambda x: x[list(rec)].clone(), w["gs"])
+        d = drive_level(w, VARIANT_FRAMES[variant], tuple(range(len(rec))))
+        out[variant] = (d["traj"].numpy(), d["latch"].numpy())
+    return out
+
+
+def run_level_phase(dev, smi, require, check_tile, check_depth, reps=2,
+                    n_headless=N_HEADLESS, n_variant=1024, n_batch=N_SLICE,
+                    frame_size=(640, 360), res=RES):
+    """Phase 15: the authored level (demo/level57.json) through the port's
+    loader and the level's asset pack. Headless game_step of
+    demo/platformer.py's scripted walk at 4,096 envs (LEVEL_FRAMES frames,
+    Tab at 2/3), held against the port's CPU run of env 0 (the same latch
+    frames, positions within 1e-3), the camera bank's two slots; the
+    rotating beam and a 4-character roster at 1,024 envs each, held the
+    same way; then the level rendered at 1 env × 640 × 360
+    (game_frame_step, GameFrameRenderer) and at 64 envs × 256²
+    (step_and_render): 1 warm-up + LEVEL_WALL_FRAMES wall-timed + ``reps``
+    profiled frames each, peak memory, launches counted from 0; K1 and K2
+    bit-exact on each frame's own inputs, timed and bounded; the 64-env
+    frame against the plain CPU path; render_frame_debug's taps on the 640 × 360
+    frame. The CPU runs the card is held against are made in a worker
+    process (``level_cpu_references``) while the card runs. The sizes are
+    arguments, so the phase can be rehearsed small on the CPU."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        refs = pool.submit(level_cpu_references, n_variant)
+        return _level_phase(dev, smi, require, check_tile, check_depth, reps,
+                            n_headless, n_variant, n_batch, frame_size, res,
+                            refs)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _level_phase(dev, smi, require, check_tile, check_depth, reps,
+                 n_headless, n_variant, n_batch, frame_size, res, refs):
+    """run_level_phase's body; ``refs``: the future of
+    level_cpu_references."""
+    import copy
+
+    import torch
+
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.engine.frame import game_frame_step, step_and_render
+    from clap_tpu_torch.engine.step import inputs_zero
+    from clap_tpu_torch.render.passbrowser import (PASS_ORDER,
+                                                   render_frame_debug)
+    from clap_tpu_torch.render.pipeline import (clip_transform,
+                                                gather_records,
+                                                shadow_records)
+    from clap_tpu_torch.render.view import cascade_subviews
+
+    secs, clock = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = round(now - clock[0], 1)
+        clock[0] = now
+
+    # ------------------------------------------------------- the load
+    w = build_level(dev, n_headless)
+    sc = w["scene"]
+    cfg = sc.cfg
+    n_tris = int(cfg.world.tri_valid.shape[0])
+    log(f"phase 15 level load (demo/level57.json, the port's loader and "
+        f"asset pack): {w['load_s']:.3f} s on the host; "
+        f"{int(cfg.entities.active.sum())} entities in "
+        f"{cfg.entities.active.shape[0]} slots, "
+        f"{int(cfg.bodies.active.sum())} bodies in "
+        f"{cfg.bodies.active.shape[0]} slots, "
+        f"{cfg.char_params.body.shape[0]} characters, {n_tris} collision "
+        f"triangles, {sc.state0.cameras.pos.shape[0]} cameras ({smi})")
+    require(n_tris == 84 and sc.state0.cameras.pos.shape[0] == 2,
+            "level57: 84 collision triangles, 2 cameras")
+
+    mark("load")
+
+    # ------------------------------------------- headless at 4,096 envs
+    torch.cuda.synchronize()
+    d = drive_level(w, LEVEL_FRAMES, timed=True, profiled=reps)
+    st = d["gs"].engine
+    latch = d["latch"]
+    l0 = latch[0].tolist()
+    require(bool((latch == latch[0]).all()),
+            "every env latches each switch on the same frame")
+    t0 = time.perf_counter()
+    ref = refs.result()
+    wait_s = time.perf_counter() - t0
+    traj, ref_latch = ref["level57"]
+    err = float((d["traj"].cpu() - torch.as_tensor(traj)).abs().max())
+    require(ref_latch[0].tolist() == l0,
+            f"card latch frames {l0} == CPU {ref_latch[0].tolist()}")
+    require(l0[0] >= 0, "switch A latches in the scripted walk")
+    require(err <= 1e-3, f"env 0 on the card within 1e-3 of the CPU run "
+            f"({err:.3g})")
+    eyes = st.cameras.pos
+    require(bool(((eyes[:, 0] - eyes[:, 1]).norm(dim=-1) > 1.0).all()),
+            "the two camera slots' eyes differ")
+    require(all(bool(torch.equal(a, b[:, 0]))
+                for a, b in zip(st.camera, st.cameras)),
+            "the active camera is slot 0")
+    wall = median(d["wall"])
+    log(f"phase 15 headless game_step (the scripted walk, camera "
+        f"occlusion): {n_headless} envs x {LEVEL_FRAMES} frames, "
+        f"{spread(d['wall'])} wall / {spread(d['busy'])} device busy per "
+        f"frame, {n_headless / wall * 1e3:.0f} env-steps/s; switches latch "
+        f"at frames {l0} (-1: not in the run), control to character "
+        f"{int(d['gs'].game.control[0])} at frame {LEVEL_FRAMES * 2 // 3}; "
+        f"env 0 vs the CPU run: same latch frames, max abs position error "
+        f"{err:.3g} (the CPU runs, made meanwhile, waited for {wait_s:.1f} "
+        f"s); camera slot eyes at least "
+        f"{float((eyes[:, 0] - eyes[:, 1]).norm(dim=-1).min()):.2f} m apart "
+        f"({smi})")
+    out = dict(headless_wall=d["wall"], headless_busy=d["busy"], latch=l0,
+               headless_err=err)
+    gs_env0 = tree_map(lambda x: x[:1].clone(), d["gs"])
+    gw = w["gw"]
+    del w, d, st
+    torch.cuda.empty_cache()
+
+    mark("headless")
+
+    # ------------------------------------------ variants at 1,024 envs
+    for variant, rec in (("beam", (0, n_variant // 4)), ("roster4", (0,))):
+        w = build_level(dev, n_variant, variant)
+        torch.cuda.synchronize()
+        frames = VARIANT_FRAMES[variant]
+        d = drive_level(w, frames, rec, timed=True)
+        traj, ref_latch = ref[variant]
+        err = float((d["traj"].cpu() - torch.as_tensor(traj)).abs().max())
+        require(err <= 1e-3, f"{variant}: the card within 1e-3 of the CPU "
+                f"run ({err:.3g})")
+        same = ref_latch.tolist() == d["latch"][list(rec)].cpu().tolist()
+        require(same, f"{variant}: latch frames as on the CPU")
+        st = d["gs"].engine
+        C = st.chars.state.shape[1]
+        extra = ""
+        if variant == "beam":
+            foot = st.phys.pos[:, 0, 1] - w["scene"].cfg.bodies.yoffset[0]
+            on = foot > 2.0
+            q = rec[1]
+            extra = (f"; characters held by the turned beam in "
+                     f"{int(on.sum())}/{on.shape[0]} envs (env 0 "
+                     f"{float(foot[0]):.2f} m, env {q} (90 degrees) "
+                     f"{float(foot[q]):.2f} m)")
+            require(float(foot[0]) > 2.0 and float(foot[q]) < 1.9,
+                    "the beam holds the character where it lies and drops "
+                    "it past its top (2.2 m) where it used to lie")
+        log(f"phase 15 variant {variant}: {n_variant} envs x {frames} "
+            f"frames, {C} characters, {spread(d['wall'])} wall per frame, "
+            f"{n_variant / median(d['wall']) * 1e3:.0f} env-steps/s; envs "
+            f"{list(rec)} vs the CPU run: max abs position error "
+            f"{err:.3g}{extra} ({smi})")
+        out[f"{variant}_wall"] = d["wall"]
+        del w, d, st
+        torch.cuda.empty_cache()
+        mark(variant)
+
+    # ------------------------------------ the rendered level, 640 x 360
+    fr, br = level_renderers(sc, dev, frame_size, res)
+    W, H = fr.opts.width, fr.opts.height
+    ins1 = tree_map(lambda x: x[None].clone(), inputs_zero(2, device=dev))
+    ins1.motion[:, 0, 0] = 1.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    gs = gs_env0
+    calls = 0
+
+    def frame(gs):
+        nonlocal calls
+        calls += 1
+        return game_frame_step(gw, fr, gs, ins1)
+
+    gs, img = frame(gs)
+    walls, stds = [], []
+    for _ in range(LEVEL_WALL_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs, img = frame(gs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(img).all()), "level frame finite")
+        stds.append(float(img.std()))
+    busy = [device_busy_ms(lambda: frame(gs)) for _ in range(reps)]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(min(stds) > 0.01, f"every level frame has std > 0.01: {stds}")
+    require(launches == {"raster_tile": calls, "raster_depth": calls},
+            f"one K1 and one K2 launch a frame over {calls} frames: "
+            f"{launches}")
+    st1 = gs.engine
+    view = fr.view(st1)
+    geom = fr.geometry(st1, view)
+    rec, binned = gather_records(fr.opts, geom, clip_transform(
+        geom.verts, view, fr.proj))[:2]
+    log(f"phase 15 level frame (game_frame_step, GameFrameRenderer): 1 env "
+        f"x {W}x{H}, {rec.shape[-1]} records (the gather path, "
+        f"{rec.shape[-2]}-column): {spread(walls)} wall / {spread(busy)} "
+        f"device busy per frame (game_step + render), peak memory "
+        f"{peak / 2**30:.3f} GiB, image std {min(stds):.4f}.."
+        f"{max(stds):.4f}, launches in the driven run ({calls} frames) "
+        f"{launches} ({smi})")
+    k1 = kernel_report("phase 15", f"level frame surface {W}x{H} "
+                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
+                       (W, H), False, smi)
+    casc, _ = cascade_subviews(view, fr.proj, fr.lights.direction[0], 0.1,
+                               fr.far)
+    srec, sbin, dims = shadow_records(fr.opts, geom, casc.view, casc.proj)
+    k2 = kernel_report("phase 15", f"level frame cascade atlas "
+                       f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
+                       True, smi)
+    dimg, taps, counts = render_frame_debug(
+        fr.opts, geom, view, fr.proj, fr.lights, st1.camera.pos,
+        textures=fr.textures)
+    require(sorted(taps) == sorted(PASS_ORDER), f"a tap of every pass: "
+            f"{sorted(taps)}")
+    for name, t in taps.items():
+        ok = torch.isfinite(t)
+        if name == "depth":          # +inf where no surface was hit
+            ok = ok | (t == math.inf)
+        require(bool(ok.all()), f"tap {name} finite")
+    require(bool(torch.equal(dimg, img)), "the debug run draws the frame")
+    log(f"phase 15 render_frame_debug on the {W}x{H} level frame: "
+        + ", ".join(f"{n} {tuple(taps[n].shape)}" for n in PASS_ORDER
+                    if n in taps)
+        + "; counts " + ", ".join(f"{k} {int(v[0])}"
+                                  for k, v in counts.items()))
+    out.update(frame_wall=walls, frame_busy=busy, frame_peak=peak,
+               frame_launches=launches, k1=k1, k2=k2)
+    del taps, dimg, geom, rec, srec
+
+    mark("frame")
+
+    # ---------------------------------- the rendered level, 64 x 256^2
+    wb = build_level(dev, n_batch)
+    gsb, gwb = wb["gs"], wb["gw"]
+    insb = tree_map(lambda x: x.expand(n_batch, *x.shape).clone(),
+                    inputs_zero(2, device=dev))
+    insb.motion[:, 0, 0] = 1.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    gsb, imgs = step_and_render(gwb, br, gsb, insb)
+    walls = []
+    for _ in range(LEVEL_WALL_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gsb, imgs = step_and_render(gwb, br, gsb, insb)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    busy = [device_busy_ms(lambda: step_and_render(gwb, br, gsb, insb))
+            for _ in range(reps)]
+    launches_b = read_launches()
+    peak_b = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(imgs).all()), "64-env level frame finite")
+    std = imgs.reshape(n_batch, -1).std(dim=1)
+    require(bool((std > 0.01).all()), "per-env std > 0.01")
+    require(all(v > 0 for v in launches_b.values()),
+            f"K1 and K2 launched on the 64-env path: {launches_b}")
+    stb = gsb.engine
+    _, rec, binned, srec, sbin, dims = frame_records(br, stb)
+    cpu = copy.deepcopy(br).to("cpu")
+    ref = cpu(tree_map(lambda x: x[:2].cpu(), stb))
+    mse = ((imgs[:2].cpu() - ref) ** 2).reshape(2, -1).mean(1)
+    psnr = [10 * math.log10(1.0 / max(float(m), 1e-12)) for m in mse]
+    log(f"phase 15 level batch (step_and_render, SceneRenderer): "
+        f"{n_batch} envs x {res}^2, {rec.shape[-1]} records per env: "
+        f"{spread(walls)} wall / {spread(busy)} device busy per frame, "
+        f"{n_batch / median(walls) * 1e3:.0f} env-fps, peak memory "
+        f"{peak_b / 2**30:.3f} GiB, image std min {float(std.min()):.4f}, "
+        f"launches in the driven run ({1 + LEVEL_WALL_FRAMES + reps} "
+        f"frames) {launches_b}; envs 0-1 vs the plain CPU path PSNR "
+        f"{psnr[0]:.1f} / {psnr[1]:.1f} dB ({smi})")
+    require(min(psnr) >= 35.0, "64-env level frame PSNR >= 35 dB vs CPU")
+    k1b = kernel_report("phase 15", f"level batch {n_batch} envs {res}^2 "
+                        f"surface", check_tile, rec, binned, (res, res),
+                        False, smi)
+    k2b = kernel_report("phase 15", f"level batch cascade atlas "
+                        f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
+                        True, smi)
+    out.update(batch_wall=walls, batch_busy=busy, batch_peak=peak_b,
+               batch_launches=launches_b, batch_psnr=psnr, k1b=k1b, k2b=k2b)
+    del wb, gsb, imgs, rec, srec, cpu, fr, br
+    torch.cuda.empty_cache()
+    mark("batch")
+    log(f"phase 15 sub-steps, host seconds: {json.dumps(secs)} (headless: "
+        f"{sum(out['headless_wall']) / 1e3:.1f} s of wall-timed frames)")
+    out["seconds"] = secs
+    return out
 
 
 def bake_records(rt, tb, lights):

@@ -112,6 +112,17 @@ def from_numpy(tree, device=None):
     return _convert_node(tree, leaf)
 
 
+def scene_parts_from_numpy(parts: dict, device=None) -> dict:
+    """A JAX-package LoadedScene's pieces → the port's, on ``device`` (the
+    card unless named): ``parts`` maps names to numpy trees (``cfg``,
+    ``state0``, ``lights``, ``game``) or to a dict of arrays (the
+    ``char_armature()`` arrays), which become tensors."""
+    device = resolve_device(device)
+    return {k: {n: torch.as_tensor(np.array(x), device=device)
+                for n, x in v.items()} if isinstance(v, dict)
+            else from_numpy(v, device) for k, v in parts.items()}
+
+
 def to_numpy(tree):
     """Port tree (torch leaves) → port tree with numpy leaves."""
     def leaf(x):

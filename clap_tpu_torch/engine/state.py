@@ -34,7 +34,12 @@ class EntityParams(NamedTuple):
 
 
 class CameraState(NamedTuple):
-    """3rd-person orbit camera (camera.{c,h}): the ACTIVE camera."""
+    """3rd-person orbit camera (camera.{c,h}).
+
+    The ACTIVE camera (``EngineState.camera``: (B,) fields, pos (B, 3)),
+    and, with a slot axis after the env axis, the ≤4-slot camera bank
+    (``EngineState.cameras``: (B, NC) fields, pos (B, NC, 3); scene.h:40,
+    NR_CAMERAS_MAX)."""
 
     pitch: torch.Tensor        # f32 radians
     yaw: torch.Tensor          # f32 radians
@@ -55,7 +60,8 @@ class EngineState(NamedTuple):
     camera: CameraState
     time: torch.Tensor         # f32 seconds
     frame: torch.Tensor        # int32
-    cameras: CameraState = None  # multi-camera bank (not ported: raises)
+    cameras: CameraState = None  # (NC,)-stacked camera bank or None;
+                                 # slot 0 is the active camera
 
 
 @dataclass(frozen=True)
@@ -89,15 +95,21 @@ class SceneConfig(NamedTuple):
     model_aabb: torch.Tensor   # (M, 2, 3) min/max per model
     limbo_height: torch.Tensor  # f32
     gravity_y: torch.Tensor    # f32
-    camera_char: torch.Tensor = None
-    ent_rest_pos: torch.Tensor = None
-    ent_rest_rot: torch.Tensor = None
+    camera_char: torch.Tensor = None  # (NC,) int32 char each camera slot
+                                      # follows; -1 = the controlled char
+    ent_rest_pos: torch.Tensor = None  # (E, 3) load-pose positions: when
+                                       # set, static-trimesh collision
+                                       # follows its entity (per env)
+    ent_rest_rot: torch.Tensor = None  # (E, 4) load-pose quats: with
+                                       # ent_rest_pos, the full transform
+                                       # follows, not only the translation
     host: SceneHost = None
 
 
 def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,
-                      device=None) -> EngineState:
-    """Unbatched initial state (single active camera)."""
+                      n_cameras: int = 0, device=None) -> EngineState:
+    """Unbatched initial state. ``n_cameras`` > 0 allocates the ≤4-slot
+    camera bank (scene.h:40); 0 keeps the single active camera."""
     device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -128,6 +140,13 @@ def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,
         disable_count=torch.zeros(N, **i32),
         disabled=torch.zeros(N, **bl),
     )
+    cameras = None
+    if n_cameras:
+        cameras = CameraState(
+            pitch=torch.full((n_cameras,), -0.3, **f32),
+            yaw=torch.zeros(n_cameras, **f32),
+            dist=torch.full((n_cameras,), 8.0, **f32),
+            pos=torch.zeros(n_cameras, 3, **f32))
     E = n_entities
     return EngineState(
         pos=torch.zeros(E, 3, **f32),
@@ -142,5 +161,5 @@ def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,
             dist=torch.tensor(8.0, **f32), pos=torch.zeros(3, **f32)),
         time=torch.tensor(0.0, **f32),
         frame=torch.tensor(0, **i32),
-        cameras=None,
+        cameras=cameras,
     )

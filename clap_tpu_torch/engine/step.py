@@ -67,25 +67,31 @@ def _host(cfg: SceneConfig):
 def _characters_move(cfg: SceneConfig, st: EngineState, inputs: Inputs, dt):
     """scene_characters_move (scene.c:1058): rosters of ≤2 characters
     update sequentially — later characters see earlier ones' new body
-    positions, like the C entity-list walk."""
+    positions, like the C entity-list walk. Larger rosters move as one
+    batch, as the JAX package's vmapped move does: every character
+    against the pre-move body positions, the new positions written once
+    at the end (a one-frame lag of char-vs-char sweeps within a step)."""
     n_chars = cfg.char_params.body.shape[0]
     if n_chars == 0:
         return st
-    if n_chars > 2:
-        raise NotImplementedError(
-            "rosters of more than 2 characters (the vmapped batch move)")
     body_pos = st.phys.pos
     char_body = _host(cfg).char_body
-    new_chars = []
+    dash = inputs.dash
+    moved, new_chars = [], []
     for ci in range(n_chars):
-        cp = _char_params(cfg, ci)
-        dash = None if inputs.dash is None else inputs.dash[:, ci]
         p_new, cs2 = C.character_move(
-            cfg.world, cfg.bodies, cp, _char(st.chars, ci), body_pos,
-            inputs.motion[:, ci, 0], inputs.motion[:, ci, 1],
-            inputs.jump[:, ci], dt, dash_input=dash, idx=char_body[ci])
-        body_pos = C._set_body(body_pos, char_body[ci], p_new)
+            cfg.world, cfg.bodies, _char_params(cfg, ci), _char(st.chars, ci),
+            body_pos, inputs.motion[:, ci, 0], inputs.motion[:, ci, 1],
+            inputs.jump[:, ci], dt,
+            dash_input=None if dash is None else dash[:, ci],
+            idx=char_body[ci])
+        if n_chars <= 2:
+            body_pos = C._set_body(body_pos, char_body[ci], p_new)
+        else:
+            moved.append(p_new)
         new_chars.append(cs2)
+    for ci, p_new in enumerate(moved):
+        body_pos = C._set_body(body_pos, char_body[ci], p_new)
     return st._replace(phys=st.phys._replace(pos=body_pos),
                        chars=_stack_chars(new_chars))
 
@@ -171,9 +177,18 @@ def _camera_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
     roster-controlled character slot (scene_control_next scene.c:23-55);
     None follows slot 0. ``head_target`` ((B, C, 3) pos, (B, C) valid,
     optional): a valid head of the followed character becomes the target
-    (camera_target camera.c:174-206, the rig's JOINT_HEAD)."""
+    (camera_target camera.c:174-206, the rig's JOINT_HEAD).
+
+    With a camera bank (``st.cameras`` and ``cfg.camera_char``) every slot
+    tracks its target every frame (scene_cameras_calc scene.c:1050-1055):
+    input steers slot 0, a slot follows its ``camera_char`` where that is
+    >= 0 and the controlled character elsewhere, the head and the
+    occlusion shrink apply per slot, and the active camera is slot 0."""
     from ..render.camera import camera_update, orbit_quat
 
+    if st.cameras is not None and cfg.camera_char is not None:
+        return _camera_bank_update(cfg, st, inputs, control, head_target,
+                                   camera_occlusion)
     cam = st.camera
     d = inputs.cam_delta
     pitch = torch.clamp(cam.pitch + d[:, 0], -1.45, 1.45)
@@ -204,6 +219,70 @@ def _camera_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
                                           pos=eye))
 
 
+def _camera_bank_update(cfg: SceneConfig, st: EngineState, inputs: Inputs,
+                        control, head_target, camera_occlusion: bool):
+    """_camera_update over the (B, NC) camera bank. Both paths stay, as
+    in the JAX package (clap_tpu/engine/step.py:202-235 beside :237-260): a
+    scene without a bank keeps one camera, may have no characters, and
+    follows slot 0's body through the host facts with no gather. Running
+    it as a one-slot bank instead is not yet measured against the
+    testbed's launches per frame."""
+    from ..render.camera import camera_update, orbit_quat
+
+    cams = st.cameras
+    d = inputs.cam_delta
+
+    def steer(x, k):
+        return torch.cat([x[:, :1] + d[:, k:k + 1], x[:, 1:]], dim=1)
+
+    pitch = torch.clamp(steer(cams.pitch, 0), -1.45, 1.45)
+    yaw = torch.remainder(steer(cams.yaw, 1) + math.pi, 2 * math.pi) \
+        - math.pi
+    dist = torch.clamp(steer(cams.dist, 2), 1.0, 50.0)
+    B = pitch.shape[0]
+    env = torch.arange(B, device=pitch.device)[:, None]
+    ctrl = torch.zeros(B, dtype=torch.long, device=pitch.device) \
+        if control is None else control.long()
+    cc = cfg.camera_char.long()
+    follow = torch.where(cc >= 0, cc, ctrl[:, None])           # (B, NC)
+    n_chars = cfg.char_params.body.shape[0]
+    body = cfg.char_params.body[torch.clamp(follow, 0, n_chars - 1)]
+    targets = st.phys.pos[env, body.long()]                    # (B, NC, 3)
+    if head_target is not None:
+        hpos, hvalid = head_target
+        c = torch.clamp(follow, 0, hpos.shape[1] - 1)
+        targets = torch.where(hvalid[env, c][..., None], hpos[env, c],
+                              targets)
+    if camera_occlusion:
+        eyes = camera_update(cfg.world, targets, pitch, yaw, dist)[0]
+    else:
+        eyes = mx.transform_orbit(orbit_quat(pitch, yaw), targets, dist)
+    bank = CameraState(pitch=pitch, yaw=yaw, dist=dist, pos=eyes)
+    return st._replace(camera=CameraState(*(x[:, 0] for x in bank)),
+                       cameras=bank)
+
+
+def _follow_entities(cfg: SceneConfig, st: EngineState, world):
+    """Static-trimesh collision that follows its entity (ODE geoms ride
+    entity transforms, physics.c:789-811): per-env triangles (B, T, 3, 3)
+    of the owning entities' current pose. Translation only, tri +
+    (pos − rest_pos), unless ``cfg.ent_rest_rot`` is set; then the full
+    transform, R(rot)·R(rest)ᵀ·(tri − rest_pos) + pos."""
+    te = world.tri_entity
+    e = torch.clamp(te, min=0).long()
+    owned = (te >= 0)[None, :, None, None]                     # (1,T,1,1)
+    if cfg.ent_rest_rot is None:
+        delta = (st.pos - cfg.ent_rest_pos)[:, e]              # (B, T, 3)
+        return world.tris + torch.where(owned[..., 0], delta, 0.0
+                                        )[:, :, None, :]
+    r_rel = mx.mat3_from_quat(st.rot) \
+        @ mx.mat3_from_quat(cfg.ent_rest_rot).transpose(-1, -2)  # (B,E,3,3)
+    local = world.tris - cfg.ent_rest_pos[e][:, None, :]       # (T, 3, 3)
+    moved = local @ r_rel[:, e].transpose(-1, -2) \
+        + st.pos[:, e][:, :, None, :]                          # (B,T,3,3)
+    return torch.where(owned, moved, world.tris)
+
+
 def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
                 dt=1.0 / 60.0, max_substeps: int = 2, control=None,
                 head_target=None,
@@ -213,20 +292,18 @@ def engine_step(cfg: SceneConfig, st: EngineState, inputs: Inputs,
     max_substeps=2 is exact for 60 Hz frames. ``control`` ((B,) int32)
     and ``head_target`` ((B, C, 3), (B, C) bool) retarget the camera (see
     _camera_update)."""
-    if st.cameras is not None or cfg.camera_char is not None:
-        raise NotImplementedError("multi-camera banks")
     dev = st.pos.device
     if not isinstance(dt, torch.Tensor):
         dt = torch.full((), dt, dtype=torch.float32, device=dev)
-    # static-trimesh validity follows entity visibility (per env)
+    # static-trimesh validity follows entity visibility (per env), and
+    # with ent_rest_pos the triangles follow their entity (per env)
     world = cfg.world
     if world.tri_entity is not None:
-        if cfg.ent_rest_pos is not None:
-            raise NotImplementedError(
-                "static trimesh following its entity (ent_rest_pos)")
         te = world.tri_entity
         tvis = (te < 0) | st.visible[:, torch.clamp(te, min=0).long()]
         world = world._replace(tri_valid=world.tri_valid & tvis)
+        if cfg.ent_rest_pos is not None:
+            world = world._replace(tris=_follow_entities(cfg, st, world))
         cfg = cfg._replace(world=world)
     st = _characters_move(cfg, st, inputs, dt)
     st = _apply_char_push(cfg, st, dt)

@@ -4,8 +4,10 @@
 Contact convention: ``normal`` points from the obstacle toward the body
 (the push-out direction); ``depth > 0`` means penetration. Every function
 takes queries with arbitrary leading batch dims (envs, bodies, probes).
-The static triangle soup is shared by all envs; its validity mask may be
-per env, ``(B, T)``, when collision follows entity visibility.
+The static triangle soup is shared by all envs, ``(T, 3, 3)``, or per env,
+``(B, T, 3, 3)``, when collision follows its entity (the env axis then
+leads the queries' batch dims); its validity mask may be per env,
+``(B, T)``, when collision follows entity visibility.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ class StaticWorld(NamedTuple):
     """Per-scene static collision geometry (shared across all envs)."""
 
     hf: Heightfield
-    tris: torch.Tensor       # (T, 3, 3) world-space static triangles
+    tris: torch.Tensor       # (T, 3, 3) world-space static triangles,
+                             # or (B, T, 3, 3) per env
     tri_valid: torch.Tensor  # (T,) bool, or (B, T) per env
     tri_entity: torch.Tensor = None  # (T,) int32 owning entity per triangle
     hf_entity: torch.Tensor = None   # () int32 terrain's entity id
@@ -81,6 +84,17 @@ def _tri_valid_for(world: StaticWorld, batch_shape):
                       + tv.shape[1:])
 
 
+def _tris_for(world: StaticWorld, batch_shape):
+    """The triangle soup broadcast against queries of ``batch_shape``:
+    (T, 3, 3) as it is, per-env (B, T, 3, 3) as (B, 1, ..., T, 3, 3)
+    aligned with the leading env axis."""
+    t = world.tris
+    if t.dim() == 3:
+        return t
+    return t.reshape(t.shape[:1] + (1,) * (len(batch_shape) - 1)
+                     + t.shape[1:])
+
+
 def hf_capsule_contacts(hf: Heightfield, p_bot, p_top, r, n_samples: int = 9,
                         patch=None, two_ended: bool = False):
     """Analytic capsule-vs-heightfield contacts: the exact face plane under
@@ -125,11 +139,11 @@ def capsule_world_contacts(world: StaticWorld, p_bot, p_top, r,
     Slots: n_samples (×3 when two_ended) heightfield + T trimesh."""
     hd, hn, hp, hv = hf_capsule_contacts(world.hf, p_bot, p_top, r,
                                          n_samples, patch, two_ended)
-    t = world.tris
+    t = _tris_for(world, p_bot.shape[:-1])
     r = torch.as_tensor(r, dtype=torch.float32, device=p_bot.device)
     depth, normal, point = capsule_triangle_contact(
         p_bot[..., None, :], p_top[..., None, :], r[..., None],
-        t[:, 0], t[:, 1], t[:, 2])
+        t[..., 0, :], t[..., 1, :], t[..., 2, :])
     tv = _tri_valid_for(world, p_bot.shape[:-1])
     depth = torch.where(tv, depth, -INF)
     valid = tv & (depth > 0)
@@ -166,9 +180,9 @@ def raycast_down(world: StaticWorld, origin, max_dist):
     hf_n = hf_face_normal(world.hf, x, z)
 
     direc = mx.const([0.0, -1.0, 0.0], origin.device)
-    tris = world.tris
-    t, hit = ray_triangle(origin[..., None, :], direc, tris[:, 0],
-                          tris[:, 1], tris[:, 2])
+    tris = _tris_for(world, origin.shape[:-1])
+    t, hit = ray_triangle(origin[..., None, :], direc, tris[..., 0, :],
+                          tris[..., 1, :], tris[..., 2, :])
     max_dist = torch.as_tensor(max_dist, dtype=torch.float32,
                                device=origin.device)
     tv = _tri_valid_for(world, origin.shape[:-1])
@@ -176,7 +190,12 @@ def raycast_down(world: StaticWorld, origin, max_dist):
     tri_dist = torch.amin(t, dim=-1)
     # winner: first triangle at the minimum distance
     first = torch.argmax((t == tri_dist[..., None]).int(), dim=-1)
-    tri = tris[first]                                         # (..., 3, 3)
+    if tris.dim() == 3:
+        tri = tris[first]                                     # (..., 3, 3)
+    else:
+        env = torch.arange(first.shape[0], device=first.device).reshape(
+            (-1,) + (1,) * (first.dim() - 1))
+        tri = world.tris[env, first]
     tn = torch.linalg.cross(tri[..., 1, :] - tri[..., 0, :],
                             tri[..., 2, :] - tri[..., 0, :], dim=-1)
     tn = tn / torch.clamp(torch.linalg.vector_norm(tn, dim=-1, keepdim=True),
@@ -203,9 +222,9 @@ def raycast(world: StaticWorld, origin, direction, max_dist,
     Returns (dist, hit_any)."""
     direc = direction / torch.clamp(
         torch.linalg.vector_norm(direction, dim=-1, keepdim=True), min=1e-12)
-    tris = world.tris
+    tris = _tris_for(world, origin.shape[:-1])
     t, hit = ray_triangle(origin[..., None, :], direc[..., None, :],
-                          tris[:, 0], tris[:, 1], tris[:, 2])
+                          tris[..., 0, :], tris[..., 1, :], tris[..., 2, :])
     t = torch.where(hit & _tri_valid_for(world, origin.shape[:-1]), t, INF)
     tri_dist = torch.amin(t, dim=-1)
 

@@ -92,6 +92,26 @@ def capsule_inertia_np(mass, radius, half_len):
     return np.stack([ixx, iyy, ixx], axis=-1).astype(f)
 
 
+def body_params_empty(n: int) -> BodyParams:
+    """``n`` empty body slots on the host: BodyParams of numpy arrays,
+    filled by a scene builder and then moved to a device
+    (``bridge.tree_map``)."""
+    z = np.zeros(n, np.float32)
+    return BodyParams(
+        active=np.zeros(n, bool), kinematic=np.zeros(n, bool),
+        radius=z.copy(), half_len=z.copy(), yoffset=z.copy(),
+        ray_off=z.copy(), mass=np.ones(n, np.float32), bounce=z.copy(),
+        bounce_vel=z.copy(), mu=np.ones(n, np.float32),
+        inertia=np.ones((n, 3), np.float32))
+
+
+def finalize_inertia(params: BodyParams) -> BodyParams:
+    """Host BodyParams with each slot's inertia derived from its capsule
+    geometry (after the slots' mass / radius / half_len are filled)."""
+    return params._replace(inertia=capsule_inertia_np(
+        params.mass, params.radius, params.half_len))
+
+
 def capsule_auto_size(aabb_x: float, aabb_y: float, aabb_z: float,
                       geom_radius: float = 0.0, geom_offset: float = 0.0):
     """Upright auto-capsule from entity AABB (phys_geom_capsule_new,

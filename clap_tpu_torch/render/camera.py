@@ -1,7 +1,8 @@
 """3rd-person orbit camera with occlusion shrink (counterpart of
 clap_tpu/render/camera.py; reference: core/camera.{c,h}).
 
-Batched over envs: target (B, 3), pitch/yaw/dist (B,). Occlusion casts
+Batched over envs: target (B, 3), pitch/yaw/dist (B,), or with more
+leading axes after the env axis (the camera bank's (B, NC)). Occlusion casts
 rays from the target to the 4 near-plane corners of the candidate camera
 and shrinks the orbit distance by the smallest hit fraction, a fixed
 OCCLUSION_ITERS times (camera.c:93-117, 232-236).
@@ -32,7 +33,7 @@ def orbit_quat(pitch, yaw):
 
 
 def _near_corners(eye, target, dist, fovy, aspect, near=0.3):
-    """4 near-plane corner points (B, 4, 3) of a camera at ``eye`` looking
+    """4 near-plane corner points (..., 4, 3) of a camera at ``eye`` looking
     at ``target`` (camera_calc_rays camera.c:60-92)."""
     dev = eye.device
     fwd = mx.normalize(target - eye)
@@ -50,18 +51,18 @@ def _near_corners(eye, target, dist, fovy, aspect, near=0.3):
 
 def camera_update(world: StaticWorld, target, pitch, yaw, want_dist,
                   fovy=math.pi / 3, aspect=16 / 9):
-    """Orbit + occlusion shrink. Returns (eye (B, 3), rot_q (B, 4),
-    dist (B,))."""
+    """Orbit + occlusion shrink. Returns (eye (..., 3), rot_q (..., 4),
+    dist (...)) for target (..., 3) and pitch / yaw / want_dist (...)."""
     pitch = torch.clamp(pitch, -PITCH_CLAMP, PITCH_CLAMP)
     q = orbit_quat(pitch, yaw)
     dist = want_dist
     for _ in range(OCCLUSION_ITERS):
         eye = mx.transform_orbit(q, target, dist)
-        corners = _near_corners(eye, target, dist, fovy, aspect)  # (B,4,3)
-        d = corners - target[:, None, :]
+        corners = _near_corners(eye, target, dist, fovy, aspect)  # (.,4,3)
+        d = corners - target[..., None, :]
         ln = torch.sqrt(torch.sum(d * d, dim=-1))
         lc = torch.clamp(ln, min=1e-6)
-        hit_dist, hit = raycast(world, target[:, None, :].expand_as(d),
+        hit_dist, hit = raycast(world, target[..., None, :].expand_as(d),
                                 d / lc[..., None], ln, n_march=8)
         fracs = torch.where(hit, hit_dist / lc, 1.0)
         scale = torch.amin(fracs, dim=-1)

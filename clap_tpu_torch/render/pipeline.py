@@ -642,17 +642,16 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
     ``ssao_kernel_arr`` (16, 3) replaces the default hemisphere table of
     ``ssao_mode="kernel"``. Returns the LDR image (B, H, W, 3).
 
-    ``_taps`` (the per-pass images of the JAX package's
-    ``render_frame_debug``) raises NotImplementedError."""
-    if _taps is not None:
-        raise NotImplementedError(
-            "render_frame(_taps=) and render_frame_debug (the pass "
-            "browser's per-pass images) are not ported yet")
+    ``_taps``: a dict this call fills with each pass's intermediate image,
+    (B, ...) each, at the points of the JAX package's render_frame (the
+    pass browser's data, ``passbrowser.render_frame_debug``); None costs
+    nothing."""
     kw = dict(far=far, shadow_moments=shadow_moments,
               shadow_mvps=shadow_mvps, cascade_dists=cascade_dists,
               static_shadow=static_shadow, grain_noise=grain_noise,
               lut_volume=lut_volume, particles=particles, textures=textures,
-              base_texture=base_texture, ssao_kernel_arr=ssao_kernel_arr)
+              base_texture=base_texture, ssao_kernel_arr=ssao_kernel_arr,
+              _taps=_taps)
     if opts.internal_scale > 1:
         # the shading-rate lever: the 3D frame renders at 1/s² of the
         # pixels; only the final LDR upscale touches full resolution
@@ -688,6 +687,17 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         opts, geom, cam_view, cam_proj, lights, eye, shadow_moments,
         shadow_mvps, cascade_dists, base_texture=base_texture,
         textures=textures, static_shadow=static_shadow)
+    if _taps is not None:
+        # the model pass's MRT outputs and the shadow pass it read
+        # (pipeline-debug.c previews each pass's FBO attachments)
+        if shadow_moments is not None:
+            _taps["shadow_atlas"] = shadow_moments[..., 0]
+        _taps["lighting_hdr"] = hdr
+        _taps["emission"] = emit
+        _taps["view_normals"] = vnrm * 0.5 + 0.5
+        _taps["depth"] = gb.depth
+        if edge_meta is not None:
+            _taps["edge_key"] = edge_meta[0]
 
     if particles is not None:
         ppos, psize, pactive = particles[:3]
@@ -709,11 +719,15 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         edges = post.laplace_edges(
             torch.where(torch.isfinite(gb.depth), gb.depth, 1.0))
     edge_mask = torch.clamp(edges * 2.0, 0.0, 1.0)
+    if _taps is not None:
+        _taps["edges"] = edge_mask
 
     smaa_weights = None
     if opts.edge_aa:
         smaa_weights = post.smaa_blend_weights(edge_mask)
         hdr = post.smaa_neighborhood_blend(hdr, smaa_weights)
+        if _taps is not None:
+            _taps["smaa_weights"] = smaa_weights
 
     if opts.ssao:
         q_pos = post.downsample_pool(vpos, 4)
@@ -729,6 +743,8 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         ao_q = post.ssao_blur(ao_raw)
         ao = post.upsample2(post.upsample2(
             ao_q, ao_q.shape[1] * 2, ao_q.shape[2] * 2), H, W)
+        if _taps is not None:
+            _taps["ssao"] = ao
         hdr = hdr * (0.4 + 0.6 * ao[..., None])
 
     view_dist = torch.sqrt(torch.sum(vpos * vpos, -1))
@@ -741,6 +757,8 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
         bloom = post.upsample2(
             post.gauss_blur_v(post.gauss_blur_h(
                 post.downsample2(post.downsample2(emit)))), H, W)
+        if _taps is not None:
+            _taps["bloom"] = bloom
         color = color + bloom * (opts.bloom_intensity
                                  * (1.0 - fog_f))[..., None]
     fc = mx.const(opts.fog_color, dev, color.dtype)
@@ -765,7 +783,10 @@ def render_frame(opts: RenderOptions, geom: SceneGeometry, cam_view,
                          * fade)[..., None]
     if opts.film_grain > 0 and grain_noise is not None:
         color = post.film_grain(color, grain_noise, opts.film_grain)
-    return shade.oetf_pq(color) if opts.hdr else shade.oetf_srgb(color)
+    out = shade.oetf_pq(color) if opts.hdr else shade.oetf_srgb(color)
+    if _taps is not None:
+        _taps["combine"] = out
+    return out
 
 
 def render_frame_batch(opts: RenderOptions, geom: SceneGeometry, cam_views,

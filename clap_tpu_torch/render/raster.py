@@ -1086,6 +1086,23 @@ def rasterize_depth(rec, binned, width: int, height: int,
     return depth[:, :height, :width]
 
 
+def raster_scene(clip_verts, faces, width: int, height: int,
+                 face_valid=None) -> GBuffer:
+    """Convenience: clip-space verts (B, V, 4) + faces (T, 3) → (B, H, W)
+    G-buffer (K1 through the tile lists); verts (V, 4) give (H, W), as in
+    the JAX package. ``face_valid``: (T,) or (B, T) bool."""
+    single = clip_verts.dim() == 2
+    if single:
+        clip_verts = clip_verts[None]
+    if face_valid is not None and face_valid.dim() == 1:
+        face_valid = face_valid.expand(clip_verts.shape[0], -1)
+    sx, sy, z, iw = project_to_screen(clip_verts, width, height)
+    rec, ok = assemble_tri_records(sx, sy, z, iw, faces, face_valid)
+    gb = rasterize(rec, bin_triangles(rec, ok, width, height), width,
+                   height)
+    return GBuffer(*(x[0] for x in gb)) if single else gb
+
+
 def raster_brute(rec, ok, width: int, height: int) -> GBuffer:
     """O(T·H·W) reference rasterizer (test oracle) for one (C, T) record
     stream, evaluated per triangle like the JAX package's oracle."""

@@ -187,7 +187,7 @@ def build_testbed(seed: int = 42, side: float = 64.0, nr_v: int = 128,
         limbo_height=dev(np.float32(40.0)), gravity_y=dev(np.float32(-9.8)),
         host=scene_host(host_bodies, np.arange(n_chars)))
 
-    st = engine_state_init(E, n_bodies, n_chars, "cpu")   # host, then moved
+    st = engine_state_init(E, n_bodies, n_chars, device="cpu")  # then moved
     for ci in range(n_chars):
         cx = 3.0 * ci
         cy = float(terrain_height_np(t, cx, 0.0))

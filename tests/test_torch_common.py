@@ -125,3 +125,59 @@ def test_bridge_rejects_unknown_types():
 
     with pytest.raises(TypeError):
         from_numpy(NotPorted(x=np.zeros(2)), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# engine_step trajectories of both packages on one loaded scene
+# ---------------------------------------------------------------------------
+
+def seeded_inputs(seed: int, n_envs: int, n_chars: int, frames: int,
+                  jump_p: float = 0.05, cam: float = 0.05):
+    """``frames`` (motion (B, C, 2), jump (B, C), cam_delta (B, 3)) numpy
+    input triples made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(frames):
+        out.append((rng.uniform(-1, 1, (n_envs, n_chars, 2)
+                                ).astype(np.float32),
+                    rng.uniform(size=(n_envs, n_chars)) < jump_p,
+                    rng.uniform(-cam, cam, (n_envs, 3)).astype(np.float32)))
+    return out
+
+
+def engine_trajectories(jcfg, tcfg, js, ts, inputs, camera_occlusion=True,
+                        per_env=False):
+    """Step the JAX package (jit of vmap) and the port over the same input
+    triples from batched states ``js`` / ``ts``. Returns [(JAX state with
+    numpy leaves, port state)] per frame. ``per_env``: JAX jits the
+    unbatched step and runs it env by env (a scene whose batched program
+    takes XLA long to compile)."""
+    import jax.numpy as jnp
+
+    from clap_tpu.engine.step import engine_step as jstep
+    from clap_tpu.engine.step import inputs_zero as jinputs_zero
+    from clap_tpu_torch.engine.step import Inputs, engine_step
+
+    one = jax.jit(lambda s, i: jstep(jcfg, s, i,
+                                     camera_occlusion=camera_occlusion))
+    if per_env:
+        def step(s, i):
+            s, i = jnp_tree((s, i))
+            outs = [jnp_tree(one(*jax.tree.map(lambda x: x[b], (s, i))))
+                    for b in range(i.jump.shape[0])]
+            return jax.tree.map(lambda *xs: np.stack(xs), *outs)
+    else:
+        step = jax.jit(jax.vmap(one))
+    out = []
+    for mot, jmp, cam in inputs:
+        B, C = jmp.shape
+        ji = jinputs_zero(C)._replace(
+            motion=jnp.asarray(mot), jump=jnp.asarray(jmp),
+            cam_delta=jnp.asarray(cam), dash=jnp.zeros((B, C), bool))
+        ti = Inputs(motion=torch.as_tensor(mot), jump=torch.as_tensor(jmp),
+                    cam_delta=torch.as_tensor(cam),
+                    dash=torch.zeros((B, C), dtype=torch.bool))
+        js = step(js, ji)
+        ts = engine_step(tcfg, ts, ti, camera_occlusion=camera_occlusion)
+        out.append((jnp_tree(js), ts))
+    return out

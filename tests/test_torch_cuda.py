@@ -475,7 +475,8 @@ def test_kernel_bit_exact_on_option_inputs_on_card(option_inputs, path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["game_step", "textured_render",
-                                  "game_frame_render"])
+                                  "game_frame_render", "level_step",
+                                  "level_follow_step"])
 def test_step_and_render_no_host_sync_on_card(cuda_device, path):
     """game_step (the flagship's wiring at 4 envs, camera occlusion), the
     textured render (the gather path at 4 envs) and the game's own frame
@@ -501,6 +502,22 @@ def test_step_and_render_no_host_sync_on_card(cuda_device, path):
 
         def call():
             return renderer(w["gs"].engine, w["gs"].joint_mats)
+    elif path in ("level_step", "level_follow_step"):
+        # the authored level (camera bank, 84 triangles) and the beam
+        # (per-env triangles following the entity's full transform)
+        from clap_tpu_torch.bridge import tree_map
+        from clap_tpu_torch.engine.step import inputs_zero
+
+        w = CS.build_level(dev, 4, "level57" if path == "level_step"
+                           else "beam")
+        C = w["gs"].engine.chars.state.shape[1]
+        ins = tree_map(lambda x: x.expand(4, *x.shape).clone(),
+                       inputs_zero(C, device=dev))
+        ins.motion[:, 0, 0] = 1.0
+
+        def call():
+            return game_step(w["gw"], w["gs"], ins,
+                             camera_occlusion=True).engine.pos
     else:
         g = CS.build_game_frame(dev)
         gs = g["gs"]
@@ -606,3 +623,89 @@ def test_ca2d_kernel_device_memory_route(cuda_device):
     assert CA.ca2d_run_fused.launches == before + 7
     for rule in CA_RULES[1:]:
         _ca_check(rule, (1, 2048, 2048), 3, cuda_device, plan)
+
+
+def _per_env_world(dev, B=3, T=24, seed=0):
+    """A flat heightfield and a per-env triangle soup (B, T, 3, 3): random
+    upward-facing triangles above the ground, each env's set shifted and
+    some masked, plus queries (B, Q, 3)."""
+    from clap_tpu_torch.physics.heightfield import make_heightfield
+    from clap_tpu_torch.physics.narrowphase import make_world
+
+    rng = np.random.default_rng(seed)
+    n = 9
+    hs = np.zeros((n, n), np.float32)
+    nrm = np.zeros((n, n, 3), np.float32)
+    nrm[..., 1] = 1.0
+    base = rng.uniform(-4, 4, (T, 1, 3)) * np.array([1, 0, 1]) \
+        + np.array([0, 1, 0]) * rng.uniform(0.2, 2.0, (T, 1, 1))
+    tri = base + rng.uniform(-1.0, 1.0, (T, 3, 3)) * np.array([1, 0.1, 1])
+    tri = tri[:, [0, 2, 1]].astype(np.float32)
+    per_env = np.stack([tri + rng.uniform(-0.5, 0.5, (1, 1, 3))
+                        for _ in range(B)]).astype(np.float32)
+    valid = rng.uniform(size=(B, T)) > 0.2
+    q = np.concatenate([rng.uniform(-4, 4, (B, 32, 1)),
+                        rng.uniform(0.5, 3.0, (B, 32, 1)),
+                        rng.uniform(-4, 4, (B, 32, 1))], -1).astype(
+                            np.float32)
+    world = make_world(make_heightfield(hs, nrm, [-8.0, -8.0], 16.0,
+                                        device=dev), tri,
+                       tri_entity=np.arange(T, dtype=np.int32))
+    world = world._replace(tris=torch.as_tensor(per_env, device=dev),
+                           tri_valid=torch.as_tensor(valid, device=dev))
+    return world, torch.as_tensor(q, device=dev)
+
+
+@pytest.mark.cuda
+def test_per_env_triangles_on_card(cuda_device):
+    """raycast_down, raycast and capsule_world_contacts on per-env
+    triangles (B, T, 3, 3) on CUDA tensors against the same calls on CPU
+    tensors: hits, entities and validity exact, distances, normals, points
+    and depths within 1e-5."""
+    from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.physics.narrowphase import (capsule_world_contacts,
+                                                    raycast, raycast_down)
+
+    world, q = _per_env_world(cuda_device)
+    cw, cq = tree_map(lambda x: x.cpu(), world), q.cpu()
+    d = torch.tensor([0.3, -1.0, 0.2])
+    d = d / d.norm()
+
+    def calls(w, q):
+        dirs = d.to(q.device).expand_as(q)
+        return (raycast_down(w, q, 3.0),
+                raycast(w, q, dirs, torch.full(q.shape[:-1], 4.0,
+                                               device=q.device)),
+                capsule_world_contacts(w, q - torch.tensor(
+                    [0.0, 0.4, 0.0], device=q.device), q, torch.full(
+                        q.shape[:-1], 0.3, device=q.device)))
+
+    got = calls(world, q)
+    torch.cuda.synchronize()
+    ref = calls(cw, cq)
+    for a, b in zip(tree_map(lambda x: x.cpu(), got), ref):
+        for x, y in zip(a, b):
+            if x.dtype in (torch.bool, torch.int32, torch.int64):
+                assert torch.equal(x, y)
+            else:
+                fin = torch.isfinite(y)
+                assert torch.equal(torch.isfinite(x), fin)
+                assert torch.allclose(x[fin], y[fin], atol=1e-5)
+    hit, ent = ref[0][2], ref[0][3]
+    assert bool(hit.any()) and bool((ent >= 0).any())
+
+
+@pytest.mark.cuda
+def test_level_step_matches_cpu_on_card(cuda_device):
+    """5 frames of the authored level's scripted walk (camera bank, 84
+    triangles) and of the 4-character roster on the card against the same
+    frames on the CPU: positions within 1e-4, latch frames equal."""
+    import chip_smoke as CS
+
+    for variant in ("level57", "roster4"):
+        got = CS.drive_level(CS.build_level(cuda_device, 2, variant), 5)
+        ref = CS.drive_level(CS.build_level("cpu", 2, variant), 5)
+        assert torch.allclose(got["traj"].cpu(), ref["traj"], atol=1e-4)
+        assert torch.equal(got["latch"].cpu(), ref["latch"])
+        cams = got["gs"].engine.cameras
+        assert torch.equal(got["gs"].engine.camera.pos, cams.pos[:, 0])

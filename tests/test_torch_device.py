@@ -10,6 +10,7 @@ from clap_tpu_torch.anim.clips import PATH_ROTATION, build_library
 from clap_tpu_torch.anim.joints import build_skeleton
 from clap_tpu_torch.anim.system import anim_instances_init
 from clap_tpu_torch.bridge import from_numpy
+from clap_tpu_torch.char.motion import camera_yaw_quat, motion_compute_ls
 from clap_tpu_torch.device import resolve_device
 from clap_tpu_torch.engine.gamelogic import game_config_empty, game_state_init
 from clap_tpu_torch.engine.state import engine_state_init
@@ -61,6 +62,45 @@ def _chip_smoke():
     return chip_smoke
 
 
+def _level(device=None):
+    """demo/level57.json through the port's loader."""
+    from pathlib import Path
+
+    from clap_tpu_torch.scene.assets57 import asset_loader
+    from clap_tpu_torch.scene.loader import load_scene
+
+    doc = (Path(__file__).resolve().parents[1] / "demo"
+           / "level57.json").read_text()
+    return load_scene(doc, asset_loader=asset_loader, max_entities=16,
+                      max_bodies=4, device=device)
+
+
+def _skinned_rig():
+    from clap_tpu_torch.scene.gltf import build_rig, load_gltf
+    from test_gltf import make_skinned_gltf
+
+    return build_rig(load_gltf(make_skinned_gltf()))
+
+
+def _record_to_inputs():
+    from clap_tpu_torch.engine.input import InputRecord, record_to_inputs
+
+    return record_to_inputs(InputRecord(right=True), 0.3, 2.0, 2)
+
+
+def _level_render_setup():
+    from clap_tpu_torch.scene.content import scene_render_setup
+
+    return scene_render_setup(_level("cpu"), tex_size=8, with_lods=False)
+
+
+def _scene_parts():
+    from clap_tpu_torch.bridge import scene_parts_from_numpy
+
+    return scene_parts_from_numpy(
+        {"armature": {"head_joint": np.zeros(1, np.int32)}})
+
+
 _KEYS = np.linspace(0.0, 1.0, 4).astype(np.float32)
 _Q = np.tile(np.array([0, 0, 0, 1], np.float32), (4, 1))
 
@@ -101,6 +141,15 @@ BUILDERS = {
         4, np.zeros((3, 4, 4), np.float32)),
     "ssao_kernel": lambda: ssao_kernel(),
     "bake_lut": lambda: bake_lut(lut_find("identity"), 4),
+    "load_scene": lambda: _level(),
+    "char_armature": lambda: _level("cpu").char_armature(),
+    "build_rig": _skinned_rig,
+    "record_to_inputs": _record_to_inputs,
+    "motion_compute_ls": lambda: motion_compute_ls(0, 1, 1, 0),
+    "camera_yaw_quat": lambda: camera_yaw_quat(0.3),
+    "scene_render_setup": _level_render_setup,
+    "scene_parts_from_numpy": _scene_parts,
+    "build_level": lambda: _chip_smoke().build_level(None, 2),
     "from_numpy": lambda: from_numpy(Inputs(
         motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
         cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),

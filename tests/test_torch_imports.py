@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 49 and bad == "[]"
+    assert int(n) >= 58 and bad == "[]"
 
 
 @pytest.mark.parametrize("module", ["clap_tpu_torch.render.charskin",
@@ -69,6 +69,42 @@ def test_option_and_game_frame_modules_import_no_jax(module):
     (device noise, LUTs, billboards, PCF, single-env assembly,
     GameFrameRenderer), each on its own."""
     test_skinned_and_textured_modules_import_no_jax(module)
+
+
+AUTHORED_LEVEL = ["clap_tpu_torch.utils.png", "clap_tpu_torch.scene.gltf",
+                  "clap_tpu_torch.scene.loader", "clap_tpu_torch.scene.content",
+                  "clap_tpu_torch.scene.editor", "clap_tpu_torch.scene.assets57",
+                  "clap_tpu_torch.char.motion", "clap_tpu_torch.engine.input",
+                  "clap_tpu_torch.render.passbrowser"]
+
+
+def test_authored_level_modules_import_no_jax():
+    """The modules of the authored-level path (the PNG codec, glTF, the
+    loader, content, the editor, the level's asset pack, motion, input and
+    the pass browser's data) in one process, JAX and the JAX package
+    looked for after each import."""
+    code = ("import importlib, sys\n"
+            f"for m in {AUTHORED_LEVEL!r}:\n"
+            "    importlib.import_module(m)\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'clap_tpu')]\n"
+            "    assert not bad, (m, bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+def test_asset_pack_builds_without_jax():
+    """The level's glTF documents (the crate's PNG included) are made with
+    no JAX in the process."""
+    code = ("import sys; from clap_tpu_torch.scene.assets57 import "
+            "asset_loader; "
+            "assert b'image/png' in asset_loader('crate.gltf'); "
+            "assert not [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'clap_tpu')]")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
 
 
 def test_committed_tables_load_without_jax():

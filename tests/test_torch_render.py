@@ -148,7 +148,13 @@ def rendered():
         tpl.RenderOptions(**{**OPTS, "film_grain": 0.03}), geom, views,
         renderer.proj, tl, ts.camera.pos, far=200.0, static_shadow=tss,
         grain_noise=blue_noise2d(64, device="cpu"))
-    return (jss, tss), ref, got + [off.numpy(), grain.numpy()]
+    # the frame again with its per-pass taps collected
+    taps = {}
+    tapped = tpl.render_frame_dynamic_batch(
+        topts, geom, views, renderer.proj, tl, ts.camera.pos, far=200.0,
+        static_shadow=tss, _taps=taps)
+    return (jss, tss), ref, got + [off.numpy(), grain.numpy(),
+                                   (tapped.numpy(), taps)]
 
 
 def test_bake_static_shadow(rendered):
@@ -192,14 +198,24 @@ def test_envs_differ(rendered):
 
 
 def test_unported_options_raise(rendered):
-    """What render_frame still does not carry raises, naming it: the
-    per-pass images of the JAX package's render_frame_debug (``_taps``).
-    Every render option of RenderOptions is ported (the option tests in
-    tests/test_torch_options*.py)."""
-    opts = tpl.RenderOptions(**OPTS)
-    with pytest.raises(NotImplementedError, match="render_frame_debug"):
-        tpl.render_frame(opts, None, torch.eye(4)[None], torch.eye(4),
-                         None, torch.zeros(1, 3), _taps={})
+    """Nothing of render_frame raises any more: its per-pass images
+    (``_taps``, the data of the JAX package's render_frame_debug), the
+    last thing it did not carry, are ported, as is every render option of
+    RenderOptions (tests/test_torch_options*.py). On the flagship's
+    kernel-attrs frame the taps fill the passes the frame runs and leave
+    its image bit-identical; the combine tap is the image."""
+    from clap_tpu_torch.render.passbrowser import PASS_ORDER
+
+    _, _, got = rendered
+    img, taps = got[6]
+    assert np.array_equal(img, got[3])
+    assert set(taps) <= set(PASS_ORDER)
+    for name in ("shadow_atlas", "lighting_hdr", "emission", "view_normals",
+                 "depth", "edges", "smaa_weights", "ssao", "bloom",
+                 "combine"):
+        assert taps[name].shape[0] == B, name
+    assert np.array_equal(taps["combine"].numpy(), img)
+    assert taps["lighting_hdr"].shape == (B, RES, RES, 3)
 
 
 def test_grain_and_lut_unread_while_off(rendered):

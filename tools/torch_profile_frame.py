@@ -16,8 +16,12 @@ each of the JAX bench's single-frame and shared-scene configurations
 warm-up calls; then the game's own frame (phase 13: 1 env × 640 × 360,
 ``game_frame_step``, ``game_step`` alone and the render alone) and the
 flagship's render under the heaviest options (phase 14: ``model_msaa`` 2,
-PCF, ``fog_noise``, ``material_fog``). ``--only`` picks groups: composed,
-single, game, options (default all). Each window is timed unprofiled (host clock around
+PCF, ``fog_noise``, ``material_fog``); then the authored level (phase 15,
+demo/level57.json): ``game_step`` of the scripted walk at 4,096 envs, the
+level's frame at 1 env × 640 × 360 (``game_frame_step`` and the render
+alone) and its 64-env × 256² batch (``step_and_render`` and the render
+alone). ``--only`` picks groups: composed, single, game, options, level
+(default all). Each window is timed unprofiled (host clock around
 synchronised work), then run again under the profiler. Prints per window the wall ms per call, the device busy
 ms per call (the summed time of every kernel, copy and fill on the card),
 its share of the unprofiled wall time, the kernels per call, and the K
@@ -88,7 +92,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--only", default="composed,single,game,options")
+    ap.add_argument("--only", default="composed,single,game,options,level")
     a = ap.parse_args()
     groups = set(a.only.split(","))
 
@@ -227,6 +231,59 @@ def main() -> int:
                    orender, a.frames, a.top, res)
         del w, static, gs
         torch.cuda.empty_cache()
+    if "level" in groups:
+        from clap_tpu_torch.bridge import tree_map
+        from clap_tpu_torch.engine.frame import game_frame_step
+        from clap_tpu_torch.engine.step import inputs_zero
+
+        def walk(n):
+            ins = tree_map(lambda x: x.expand(n, *x.shape).clone(),
+                           inputs_zero(2, device=dev))
+            ins.motion[:, 0, 0] = 1.0
+            return ins
+
+        w = CS.build_level(dev, CS.N_HEADLESS)
+        box, ins = {"gs": w["gs"]}, walk(CS.N_HEADLESS)
+
+        def lstep():
+            box["gs"] = game_step(w["gw"], box["gs"], ins,
+                                  camera_occlusion=True)
+
+        for _ in range(2):
+            lstep()
+        torch.cuda.synchronize()
+        window(f"level game_step ({CS.N_HEADLESS} envs)", lstep, a.frames,
+               a.top, res)
+        del box, ins
+        torch.cuda.empty_cache()
+        fr, br = CS.level_renderers(w["scene"], dev)
+        for tag, n in (("level frame (1 env x 640x360)", 1),
+                       (f"level batch ({CS.N_SLICE} x {CS.RES}^2)",
+                        CS.N_SLICE)):
+            wl = CS.build_level(dev, n)
+            box, ins = {"gs": wl["gs"]}, walk(n)
+            if n == 1:
+                def lframe():
+                    box["gs"], _ = game_frame_step(wl["gw"], fr, box["gs"],
+                                                   ins)
+
+                def lrender():
+                    fr(box["gs"].engine)
+            else:
+                def lframe():
+                    box["gs"], _ = step_and_render(wl["gw"], br, box["gs"],
+                                                   ins)
+
+                def lrender():
+                    br(box["gs"].engine)
+            for _ in range(2):
+                lframe()
+            torch.cuda.synchronize()
+            for name, fn in (("frame", lframe), ("render", lrender)):
+                window(f"{tag} {name}", fn, a.frames, a.top, res)
+            del wl, box, ins
+            torch.cuda.empty_cache()
+        del w, fr, br
     print(card, flush=True)
     print(json.dumps(res))
     return 0
