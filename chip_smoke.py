@@ -120,13 +120,35 @@ Phases, one or more lines each:
     timed and bounded, the 64-env frame against the plain CPU path (PSNR
     >= 35 dB), render_frame_debug's taps on the 640 × 360 frame.
 
+16. engine — the engine shell (``python -m clap_tpu_torch.demo.testbed
+    --render --fuzzer``, ``build_world`` with footsteps): ``Engine.run``
+    of 120 frames at 1 × 640 × 360 with sound, the PNG dump to a
+    temporary directory and the live display (one loopback WebSocket
+    client that receives PNG frames and sends a key); checks: 120 frames,
+    the last frame finite with std > 0.01 and mean luma in (0.02, 0.98),
+    frame 119's PNG decodes to it, footsteps played and 120 × 800 audio
+    samples, a NaN written into the body positions before frame 59 (its
+    step and render run over it) reset to the initial session by the
+    watchdog at 60, two K1 and one K2 a frame; wall ms per frame
+    (median and range) and ``profiler.report()`` (host dispatch segments);
+    the session through ``save_checkpoint`` / ``load_checkpoint``
+    bit-exact; a second Engine with graphics only equal to
+    ``game_frame_step`` bit for bit over 3 frames, its wall and device busy
+    ms and device ops per frame beside ``game_frame_step``'s, K1/K2
+    bit-exact on its frame's records (``kernel_report``), its ``-E``
+    abort; the headless soak (``--envs 4096``): ``fuzz_batch`` +
+    ``engine_step`` × 60 frames, env-steps/s, the fuzzer's draws card ==
+    CPU for envs 0 and 4,095 over frames 0-59 (inputs within 1e-6),
+    ``finite_mask``, a NaN in env 7 through ``quarantine``.
+
 Each new path's kernel launches are counted from 0 over its driven run.
 
 Then a JSON line of the kernels (``raster_tile`` / ``raster_depth`` with
 each path's launches and kernel numbers as prefixed fields: ``textured_``,
 ``full_frame_``, ``full_frame_dense_``, ``production_``, ``batched_``,
 ``shading_rate_``, ``game_frame_``, ``particles_``, ``msaa_``,
-``shadow_msaa_``, ``level_``, ``level_batch_``), the
+``shadow_msaa_``, ``level_``, ``level_batch_``, ``engine_``,
+``engine_particles_``), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
@@ -140,6 +162,7 @@ import time
 N_HEADLESS = 4096
 N_SLICE = 64
 RES = 256
+NAN_AT = 59        # phase 16: the frame that steps and renders a NaN state
 
 
 def log(msg):
@@ -421,6 +444,10 @@ def main() -> int:
     # -------------------------------------------------------------- 15
     lvl = run_level_phase(dev, smi, require, check_tile, check_depth)
     lap("15")
+
+    # -------------------------------------------------------------- 16
+    eng = run_engine_phase(dev, smi, require, check_tile, check_depth)
+    lap("16")
     log(f"phase host seconds: {json.dumps(laps)}, total "
         f"{sum(laps.values()):.0f} s")
 
@@ -460,6 +487,12 @@ def main() -> int:
         f.update(fields("level", lvl["frame_launches"][k], lvl[rep]))
         f.update(fields("level_batch", lvl["batch_launches"][k],
                         lvl[rep + "b"]))
+        # the engine shell: Engine.run's frame (its surface and particles
+        # on K1, its cascade atlas on K2)
+        f.update(fields("engine", eng["launches"][k], eng[rep]))
+        if k == "raster_tile":
+            f.update(fields("engine_particles", eng["launches"][k],
+                            eng["particles"]))
         return f
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
@@ -835,125 +868,32 @@ def build_batched(dev, n_envs=64, res=256):
 
 def build_game_frame(dev, width=640, height=360, scene=None, seed=3):
     """The game's own frame as demo/testbed.py:62-200 wires it (``--render``),
-    JAX-free: the testbed with 2 characters (``scene`` overrides
-    build_testbed's arguments), the demo rig on both, the terrain a
-    permanent switch, two spore systems of 256 live particles around the
-    characters (radius 1.6, velocity 0.015; ``seed`` seeds their spawn),
-    the demo's four models (the terrain one unchunked textured entity,
-    skinned textured ring-column characters, cubes, textured trees) and
-    three textures, the static shadow split, one sun, film grain 0.03 on the
-    default blue noise, particle size 0.1 and colour (0.95, 0.9, 0.5), at
-    ``width`` × ``height`` with 256² cascades; one env. Returns a dict: tb,
-    rt, cs, textures, lights, opts, gw, gs, ins, renderer
-    (GameFrameRenderer, the static atlas baked)."""
-    import numpy as np
-    import torch
-
-    from clap_tpu_torch.anim.system import anim_instances_init
+    through the port's demo builder (``clap_tpu_torch.demo.testbed.
+    build_world``: the testbed with 2 characters, ``scene`` overriding
+    build_testbed's arguments, the demo rig, the switch, two spore systems
+    of 256 live particles seeded by ``seed``, the four models, three
+    textures, the static shadow split, one sun, film grain, particle size
+    0.1, ``width`` × ``height`` with 256² cascades); one env. Returns a
+    dict: tb, rt, cs, textures, lights, opts, gw, gs, ins, renderer
+    (GameFrameRenderer as Engine.attach_graphics makes it, the static
+    atlas baked)."""
     from clap_tpu_torch.bridge import tree_map
+    from clap_tpu_torch.demo.testbed import build_world
     from clap_tpu_torch.device import resolve_device
-    from clap_tpu_torch.engine.frame import GameFrameRenderer
-    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
-    from clap_tpu_torch.engine.gamelogic import (game_config_empty,
-                                                 game_state_init)
+    from clap_tpu_torch.engine.core import graphics_renderer
     from clap_tpu_torch.engine.step import inputs_zero
-    from clap_tpu_torch.ops.noise import blue_noise2d
-    from clap_tpu_torch.ops.particles import (PARTICLES_MAX, ParticleParams,
-                                              particles_init)
-    from clap_tpu_torch.render.pipeline import RenderOptions, TextureSets
-    from clap_tpu_torch.render.scenerender import (build_render_tables,
-                                                   default_edge_ids,
-                                                   model_from_mesh,
-                                                   shadow_static_mask)
-    from clap_tpu_torch.scene import testbed as tbm
-    from clap_tpu_torch.scene.primitives import cube
+    from clap_tpu_torch.scene.testbed import replicate_state
 
     dev = resolve_device(dev)
-    kw = dict(seed=42, side=64.0, nr_v=128, n_dynamic=8, max_entities=64)
-    kw.update(scene or {})
-    tb = tbm.build_testbed(**kw, n_chars=2, device=dev)
-    ent = tb.cfg.entities
-    n_ent = ent.active.shape[0]
-    sk, lib, acfg = tbm.build_demo_rig(device=dev)
-    gcfg = game_config_empty(1, n_ent, device=dev)._replace(
-        switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
-        switch_valid=torch.tensor([True], device=dev),
-        switch_permanent=torch.tensor([True], device=dev))
-
-    def t(x, dtype=torch.float32):
-        return torch.tensor(x, dtype=dtype, device=dev)
-
-    pparams = ParticleParams(
-        active=t([True, True], torch.bool), radius=t([1.6, 1.6]),
-        min_radius=t([0.4, 0.4]), velocity=t([0.015, 0.015]),
-        dist=t([1, 1], torch.int32),
-        count=t([PARTICLES_MAX // 4] * 2, torch.int32))
-    pentity = t([1, 2], torch.int32)
-    gw = GameWorld(scene=tb.cfg, game=gcfg, anim=acfg, anim_sk=sk,
-                   anim_lib=lib, particles=pparams, particle_entity=pentity)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    gs = tbm.replicate_state(GameSessionState(
-        engine=tb.state0, game=game_state_init(1, 2, device=dev),
-        anim=anim_instances_init(2, device=dev),
-        particles=particles_init(pparams, tb.state0.pos[pentity.long()],
-                                 gen),
-        joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), 1)
-
-    # the demo's textures: a checker (characters), bark (trees) and the
-    # terrain's 2x2 grass/rock atlas, blended by slope
-    checker = np.zeros((32, 32, 3), np.float32) + 0.55
-    checker[::2, ::2] = (0.95, 0.55, 0.35)
-    checker[1::2, 1::2] = (0.95, 0.55, 0.35)
-    bark = np.zeros((32, 32, 3), np.float32)
-    bark[:] = (0.45, 0.33, 0.2)
-    bark[:, ::4] = (0.3, 0.2, 0.12)
-    rng = np.random.default_rng(7)
-    atlas = np.zeros((32, 32, 3), np.float32)
-    gnoise = rng.uniform(0.85, 1.15, (16, 16, 1)).astype(np.float32)
-    atlas[:16, :16] = np.array([0.30, 0.52, 0.22]) * gnoise
-    rnoise = rng.uniform(0.8, 1.2, (16, 16, 1)).astype(np.float32)
-    atlas[16:, 16:] = np.array([0.45, 0.43, 0.40]) * rnoise
-    atlas[:16, 16:] = atlas[:16, :16]
-    atlas[16:, :16] = atlas[16:, 16:]
-    textures = TextureSets(
-        diffuse=torch.as_tensor(np.stack([checker, bark, atlas]),
-                                device=dev),
-        slope_blend=t([False, False, True], torch.bool))
-
-    cv, cn, cuv, cf = cube(1.0)
-
-    def cube_mesh(w, h):
-        return (cv * np.array([w, h, w], np.float32)
-                + np.array([0, h / 2, 0], np.float32), cn, cf)
-
-    ter = tb.terrain
-    chv, chn, chuv, chf = tbm.char_column_mesh(0.6, 2.0)
-    models = [
-        model_from_mesh(ter.vx, ter.norm, ter.idx.reshape(-1, 3),
-                        base_color=(1.0, 1.0, 1.0), with_lods=False,
-                        uv=ter.uv, tex_id=2),
-        model_from_mesh(chv, chn, chf, base_color=(0.8, 0.5, 0.4), uv=chuv,
-                        tex_id=0),
-        model_from_mesh(*cube_mesh(0.8, 0.8), base_color=(0.6, 0.6, 0.7)),
-        model_from_mesh(*cube_mesh(0.8, 3.0), base_color=(0.4, 0.3, 0.2),
-                        uv=cuv, tex_id=1),
-    ]
-    rt = build_render_tables(
-        models, ent.model_id, ent.active,
-        entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
-        entity_shadow_static=shadow_static_mask(ent), device=dev)
-    lights = sun_lights(dev)
-    cs = tbm.build_testbed_char_skin(tb, models, rt, device=dev)
-    opts = RenderOptions(width=width, height=height, shadow_size=256)
-    renderer = GameFrameRenderer(
-        rt, lights, opts, skip_culling=ent.skip_culling, textures=textures,
-        grain_noise=blue_noise2d(64, device=dev), particle_params=pparams,
-        particle_size=0.1, particle_color=(0.95, 0.9, 0.5), char_skin=cs,
-        entity_mx0=tb.state0.mx)
+    w = build_world(dev, width=width, height=height, scene=scene, seed=seed)
+    tb = w["tb"]
+    renderer = graphics_renderer(tb.state0.mx, **w["graphics"])
     ins = tree_map(lambda x: x[None].clone(), inputs_zero(2, device=dev))
     ins.motion[:, 0, 0] = 1.0
-    return dict(tb=tb, rt=rt, cs=cs, textures=textures, lights=lights,
-                opts=opts, gw=gw, gs=gs, ins=ins, renderer=renderer)
+    return dict(tb=tb, rt=w["rt"], cs=w["cs"], textures=w["textures"],
+                lights=w["lights"], opts=w["opts"], gw=w["gw"],
+                gs=replicate_state(w["session0"], 1), ins=ins,
+                renderer=renderer)
 
 
 def make_renderer(w, static, to=None):
@@ -1157,23 +1097,57 @@ def _raw_busy_ns(prof):
                if e.device_type() == DeviceType.CUDA)
 
 
-def device_busy_ms(fn):
-    """The card's busy ms in one call of ``fn()``: the summed time of every
-    kernel, copy and fill under torch.profiler (CUDA activity), read from
-    its raw events (the same sum as ``key_averages()``, which takes 10-20 s
-    to build for the 54,000 kernels of a level frame). A frame queues more
-    kernels than the launch queue holds, so CUDA events around it measure
-    the host's pace as well; the profiler's sum does not."""
+def device_busy_ops(fn):
+    """The card's busy ms in one call of ``fn()`` and its number of device
+    operations (kernels, copies, fills): (ms, ops). The ms are the summed
+    time of the call's kernels, copies and fills under torch.profiler
+    (CUDA activity), read from its raw events (the same sum as
+    ``key_averages()``, which takes 10-20 s to build for the 54,000 kernels
+    of a level frame). A frame queues more kernels than the launch queue
+    holds, so CUDA events around it measure the host's pace as well; the
+    profiler's sum does not.
+
+    A record can lose device events. On an H100 one record lost all of
+    them; others lost kernels in their first millisecond or so (30 of a
+    render's 3,722, every tenth launch there; in a long run, 4-7 in every
+    record). So each record opens with 64 small launches and a
+    synchronize, which take that loss, and counts only the device events
+    that answer a host call made after that synchronize (by correlation
+    id). Every kernel launch of the call must have its kernel in the
+    record, else the call is profiled again, up to five records."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ns = _raw_busy_ns(prof)
-    if ns <= 0:
-        raise RuntimeError("the profiler shows no device time")
-    return ns / 1e6
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = list(prof.profiler.kineto_results.events())
+        host = [e for e in events if e.device_type() != DeviceType.CUDA]
+        start = min(e.correlation_id() for e in host
+                    if e.name() == "cudaDeviceSynchronize")
+        calls = {e.correlation_id(): e.name() for e in host
+                 if e.correlation_id() > start}
+        dev = [e for e in events if e.device_type() == DeviceType.CUDA
+               and e.correlation_id() in calls]
+        launches = {c for c, name in calls.items()
+                    if name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+        lost = launches - {e.correlation_id() for e in dev}
+        if launches and not lost:
+            return sum(e.duration_ns() for e in dev) / 1e6, len(dev)
+        log(f"profiler record short: {len(lost)} of {len(launches)} kernel "
+            f"launches without their kernel; profiling again")
+    raise RuntimeError("five profiler records in a row lost kernels")
+
+
+def device_busy_ms(fn):
+    """The card's busy ms in one call of ``fn()`` (``device_busy_ops``)."""
+    return device_busy_ops(fn)[0]
 
 
 def check_device_busy(dev):
@@ -1639,11 +1613,6 @@ def run_game_frame_phase(dev, smi, require, check_tile, check_depth,
 
     from clap_tpu_torch.bridge import tree_map
     from clap_tpu_torch.engine.frame import game_frame_step
-    from clap_tpu_torch.render.pipeline import (clip_transform,
-                                                gather_records,
-                                                particle_records,
-                                                shadow_records)
-    from clap_tpu_torch.render.view import cascade_subviews
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1699,25 +1668,9 @@ def run_game_frame_phase(dev, smi, require, check_tile, check_depth,
         f"{max(stds):.4f}; particles change {n_parts} pixels, grain "
         f"{g_share:.1%}; launches in the driven run (bake, "
         f"{calls} frames) {launches} ({smi})")
-    view = r.view(st)
-    rec, binned = particle_records(
-        r.opts, gs.particles.pos.reshape(1, -1, 3), r.particle_size,
-        r.particle_active, view, r.proj)
-    kp = kernel_report("phase 13", f"game frame particle billboards "
-                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
-                       (W, H), False, smi)
-    geom = r.geometry(st, view, jm)
-    rec, binned = gather_records(r.opts, geom, clip_transform(
-        geom.verts, view, r.proj))[:2]
-    k1 = kernel_report("phase 13", f"game frame surface {W}x{H} "
-                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
-                       (W, H), False, smi)
-    casc, _ = cascade_subviews(view, r.proj, r.lights.direction[0], 0.1,
-                               r.far)
-    srec, sbin, dims = shadow_records(r.opts, geom, casc.view, casc.proj)
-    k2 = kernel_report("phase 13", f"game frame cascade atlas "
-                       f"{dims[1]}x{dims[0]}", check_depth, srec, sbin, dims,
-                       True, smi)
+    kp, k1, k2 = game_frame_kernels("phase 13", "game frame", r, st,
+                                    gs.particles, jm, check_tile, check_depth,
+                                    smi)
     brec, bbin, bd = bake_records(w["rt"], w["tb"], w["lights"])
     kb = kernel_report("phase 13", f"game frame static bake {bd[1]}x{bd[0]}",
                        check_depth, brec, bbin, bd, True, smi)
@@ -1732,9 +1685,43 @@ def run_game_frame_phase(dev, smi, require, check_tile, check_depth,
     out = dict(launches=launches, wall=walls, device=busy, render_wall=rwall,
                render_device=rbusy, psnr=p, k1=k1, particles=kp, k2=k2,
                bake=kb)
-    del w, r, gs, img, geom, rec, srec, brec, cpu
+    del w, r, gs, img, brec, cpu
     torch.cuda.empty_cache()
     return out
+
+
+def game_frame_kernels(phase, label, r, st, particles, jm, check_tile,
+                       check_depth, smi):
+    """K1 on a GameFrameRenderer frame's particle billboards and surface
+    records and K2 on its cascade atlas, each from the state ``st``, its
+    ``particles`` and joint matrices ``jm`` (``kernel_report``): (K1
+    particles, K1 surface, K2 atlas) reports."""
+    from clap_tpu_torch.render.pipeline import (clip_transform,
+                                                gather_records,
+                                                particle_records,
+                                                shadow_records)
+    from clap_tpu_torch.render.view import cascade_subviews
+
+    W, H = r.opts.width, r.opts.height
+    view = r.view(st)
+    rec, binned = particle_records(
+        r.opts, particles.pos.reshape(1, -1, 3), r.particle_size,
+        r.particle_active, view, r.proj)
+    kp = kernel_report(phase, f"{label} particle billboards "
+                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
+                       (W, H), False, smi)
+    geom = r.geometry(st, view, jm)
+    rec, binned = gather_records(r.opts, geom, clip_transform(
+        geom.verts, view, r.proj))[:2]
+    k1 = kernel_report(phase, f"{label} surface {W}x{H} "
+                       f"({rec.shape[-1]} records)", check_tile, rec, binned,
+                       (W, H), False, smi)
+    casc, _ = cascade_subviews(view, r.proj, r.lights.direction[0], 0.1,
+                               r.far)
+    srec, sbin, dims = shadow_records(r.opts, geom, casc.view, casc.proj)
+    k2 = kernel_report(phase, f"{label} cascade atlas {dims[1]}x{dims[0]}",
+                       check_depth, srec, sbin, dims, True, smi)
+    return kp, k1, k2
 
 
 def run_options_phase(dev, smi, require, check_tile, check_depth, reps=3):
@@ -2330,6 +2317,336 @@ def _level_phase(dev, smi, require, check_tile, check_depth, reps,
         f"{sum(out['headless_wall']) / 1e3:.1f} s of wall-timed frames)")
     out["seconds"] = secs
     return out
+
+
+class DisplayClient:
+    """One loopback WebSocket client of a DisplayServer (as
+    tests/test_display.py connects one): the handshake, one key event
+    sent, then a thread that reads every frame the server pushes (a
+    client that stopped reading would stall the engine's sendall) and
+    keeps the first PNG frame."""
+
+    def __init__(self, host, port, key="w"):
+        import socket
+        import threading
+
+        from clap_tpu_torch.utils import websocket as ws
+
+        self.ws = ws
+        self.sock = socket.create_connection((host, port), timeout=10)
+        req, accept = ws.handshake_request(host, port, "/ws")
+        self.sock.sendall(req)
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            buf += self.sock.recv(4096)
+        require(accept.encode() in buf, "display WebSocket handshake")
+        self.rest = buf.split(b"\r\n\r\n", 1)[1]
+        self.sock.sendall(ws.encode_frame(
+            json.dumps({"t": "key", "key": key, "down": True}).encode(),
+            ws.OP_TEXT, mask=True))
+        self.frames, self.first = 0, None
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        import socket
+
+        self.sock.settimeout(0.2)
+        while not self.stop.is_set():
+            try:
+                data = self.sock.recv(1 << 20)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if not data:
+                return
+            msgs, self.rest = self.ws.decode_frames(self.rest + data)
+            for op, payload in msgs:
+                if op == self.ws.OP_BIN:
+                    self.frames += 1
+                    if self.first is None:
+                        self.first = payload
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.sock.close()
+
+
+def run_engine_phase(dev, smi, require, check_tile, check_depth, frames=120,
+                     size=(640, 360), scene=None, n_soak=N_HEADLESS,
+                     soak_frames=60, reps=5):
+    """Phase 16: the engine shell (``python -m clap_tpu_torch.demo.testbed
+    --render --fuzzer``): (a) ``Engine.run`` for ``frames`` frames of the
+    demo's game frame at ``size`` with the fuzzer, sound, the PNG dump and
+    the live display (one loopback client); a NaN written into the body
+    positions before frame 59, whose step and render then run over it,
+    reset by the watchdog at 60 (the run goes on from the reset); a second
+    Engine with graphics only held bit-exact against ``game_frame_step``,
+    timed, and its -E abort; K1 / K2 on its own frame's records; (b) the
+    headless soak ``--envs``: ``fuzz_batch`` + ``engine_step`` at
+    ``n_soak`` envs × ``soak_frames``, the fuzzer's draws card vs CPU,
+    ``finite_mask`` and ``quarantine``; (c) the session through
+    ``save_checkpoint`` / ``load_checkpoint``. Size arguments let it run
+    small on the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch.bridge import tree_leaves, tree_map
+    from clap_tpu_torch.demo.testbed import build_world, soak
+    from clap_tpu_torch.engine.core import (ClapConfig, Engine,
+                                            graphics_renderer)
+    from clap_tpu_torch.engine.frame import game_frame_step
+    from clap_tpu_torch.engine.fuzzer import fuzz_draws, fuzz_inputs
+    from clap_tpu_torch.engine.step import inputs_zero
+    from clap_tpu_torch.scene.testbed import replicate_state
+    from clap_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from clap_tpu_torch.utils.guards import finite_mask, quarantine
+    from clap_tpu_torch.utils.png import decode_png
+
+    sync = torch.cuda.synchronize
+    W, H = size
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    secs = {}
+    t_start = time.perf_counter()
+    try:
+        # ------------------------------------------ (a) Engine.run, attached
+        w = build_world(dev, width=W, height=H, scene=scene, footsteps=True)
+        tb = w["tb"]
+        walls, marks, nan_seen, reset = [], [], [], []
+
+        def frame_cb(eng):
+            sync()                  # the frame's work done: its wall time
+            marks.append(time.perf_counter())
+            if eng.frame_no == NAN_AT - 1:      # frame NAN_AT steps over it
+                eng.state.phys.pos[0, 0, 1] = float("nan")   # live, in place
+            if eng.frame_no == NAN_AT:
+                nan_seen.append(
+                    not bool(torch.isfinite(eng.state.phys.pos).all())
+                    and not bool(torch.isfinite(eng.last_frame).all()))
+
+        eng = Engine(ClapConfig(title="testbed", fuzzer=True, graphics=True,
+                                width=W, height=H, settings=False,
+                                frame_cb=frame_cb),
+                     tb.cfg, tb.state0, game_world=w["gw"],
+                     session0=w["session0"], device=dev)
+        eng.attach_graphics(**w["graphics"], out_dir=tmp)
+        eng.attach_sound()
+        disp = eng.attach_display(port=0, max_fps=0)
+        client = DisplayClient(disp.host, disp.port)
+        watchdog = eng._watchdog
+
+        def watched():
+            watchdog()
+            if eng.frame_no == NAN_AT + 1:
+                reset.append(all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(eng.session), tree_leaves(eng._session0))))
+
+        eng._watchdog = watched
+        deadline = time.monotonic() + 10
+        while disp.n_clients < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        require(disp.n_clients == 1, "the display client connected")
+        sync()
+        reset_launches()
+        marks.append(time.perf_counter())
+        eng.run(max_frames=frames)
+        launches = read_launches()
+        walls = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        deadline = time.monotonic() + 10
+        while client.first is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        client.close()
+        key_seen = disp.record.up
+        disp.close()
+        secs["engine run"] = round(time.perf_counter() - t_start, 1)
+        last = eng.last_frame
+        luma = float(last.mean())
+        require(eng.frame_no == frames, f"frame_no == {frames}")
+        require(bool(torch.isfinite(last).all()), "the last frame is finite")
+        require(float(last.std()) > 0.01, "the last frame has std > 0.01")
+        require(0.02 < luma < 0.98, f"the last frame's mean luma {luma:.3f}")
+        png = decode_png(open(f"{tmp}/frame_{frames - 1:04d}.png",
+                              "rb").read())
+        want = np.clip(np.rint(last.cpu().numpy() * 255), 0, 255)
+        require(np.array_equal(png[..., :3], want.astype(np.uint8)),
+                f"frame_{frames - 1:04d}.png decodes to the last frame")
+        n_voices = len(eng.voice_log)
+        n_audio = sum(len(b) for b in eng.audio_buffer)
+        require(n_voices >= 1, "footsteps played")
+        require(n_audio == frames * round(eng.sound.rate / 60),
+                f"{n_audio} audio samples for {frames} frames")
+        require(client.first is not None, "the display client got a frame")
+        require(decode_png(client.first).shape[:2] == (H, W),
+                "the display's PNG has the frame's size")
+        require(key_seen, "the display folded the client's key event")
+        require(nan_seen == [True], f"frame {NAN_AT} stepped and rendered "
+                f"over the NaN state")
+        require(reset == [True], f"the watchdog at {NAN_AT + 1} reset the "
+                f"NaN state to the initial session")
+        require(bool(torch.isfinite(eng.state.phys.pos).all()),
+                f"the state is finite at frame {frames}")
+        require(launches == {"raster_tile": 2 * frames,
+                             "raster_depth": frames},
+                f"two K1 launches a frame (surface, particles) and one K2 "
+                f"(the cascades) over {frames} frames: {launches}")
+        rep = eng.profiler.report()
+        log(f"phase 16 engine (python -m clap_tpu_torch.demo.testbed "
+            f"--render --fuzzer, sound, --dump, display): Engine.run "
+            f"{frames} frames at 1 env x {W}x{H}: {spread(walls)} wall per "
+            f"frame (host clock, the card synchronised in the frame "
+            f"callback); {n_voices} footsteps, {n_audio} audio samples; "
+            f"the display client got {client.frames} PNG frames; last frame "
+            f"std {float(last.std()):.4f}, mean {luma:.4f}; launches "
+            f"{launches}; frame {NAN_AT} stepped and rendered over a NaN "
+            f"body position, the watchdog reset it at {NAN_AT + 1} ({smi})")
+        log(f"phase 16 profiler.report() (host dispatch segments, not "
+            f"device time): {json.dumps(rep)}")
+
+        # (c) the session through a checkpoint, on the card
+        path = save_checkpoint(f"{tmp}/session", eng.session)
+        back = load_checkpoint(path, eng.session)
+        la, lb = tree_leaves(eng.session), tree_leaves(back)
+        require(len(la) == len(lb) and all(
+            torch.equal(a, b) and a.device == b.device
+            for a, b in zip(la, lb)), "checkpoint round trip bit-exact")
+        log(f"phase 16 checkpoint: the session's {len(la)} tensors through "
+            f"save_checkpoint / load_checkpoint bit-exact on {dev}")
+        del eng, client, disp
+
+        # ------------------------------- (a) graphics only vs the frame fn
+        seed = 5
+        ins = inputs_zero(2, device=dev)
+        ins.motion[0, 0] = 1.0
+        ins.motion[1, 1] = -0.6
+        plain = Engine(ClapConfig(title="testbed", width=W, height=H,
+                                  settings=False),
+                       tb.cfg, tb.state0, argv=["-E"], game_world=w["gw"],
+                       session0=w["session0"], device=dev, seed=seed)
+        r = plain.attach_graphics(**w["graphics"])
+        ref_r = graphics_renderer(tb.state0.mx, **w["graphics"])
+        gs = replicate_state(w["session0"], 1)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bins = tree_map(lambda x: x[None], ins)
+        for _ in range(3):
+            plain.frame(ins)
+            gs, img = game_frame_step(w["gw"], ref_r, gs, bins, generator=gen)
+        la, lb = tree_leaves(plain.session), tree_leaves(gs)
+        same = len(la) == len(lb) and all(torch.equal(a, b)
+                                          for a, b in zip(la, lb))
+        require(same and torch.equal(plain.last_frame, img[0]),
+                "3 frames of the graphics Engine equal game_frame_step's "
+                "bit for bit")
+        wall = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            plain.frame(ins)
+            sync()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        busy, ops = zip(*[device_busy_ops(lambda: plain.frame(ins))
+                          for _ in range(3)])
+        gwall = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            gs, img = game_frame_step(w["gw"], ref_r, gs, bins, generator=gen)
+            sync()
+            gwall.append((time.perf_counter() - t0) * 1e3)
+        gbusy, gops = zip(*[device_busy_ops(
+            lambda: game_frame_step(w["gw"], ref_r, gs, bins, generator=gen))
+            for _ in range(3)])
+        reset_launches()
+        plain.frame(ins)
+        per_frame = read_launches()
+        require(per_frame == {"raster_tile": 2, "raster_depth": 1},
+                f"the Engine's frame launches K1 twice and K2 once: "
+                f"{per_frame}")
+        log(f"phase 16 engine with graphics only (1 env x {W}x{H}, no "
+            f"fuzzer): equals game_frame_step bit for bit over 3 frames; "
+            f"{spread(wall)} wall / {spread(list(busy))} device busy per "
+            f"frame, {median(list(ops))} device ops a frame (kernels, "
+            f"copies, fills); game_frame_step alone {spread(gwall)} wall / "
+            f"{spread(list(gbusy))} device busy, {median(list(gops))} ops "
+            f"({smi})")
+        st, parts, jm = plain.state, plain.session.particles, \
+            plain.session.joint_mats
+        kp, k1, k2 = game_frame_kernels("phase 16", "engine frame", r, st,
+                                        parts, jm, check_tile, check_depth,
+                                        smi)
+        # the NaN goes in before the frame: its step and render run over it
+        plain.frame_no = NAN_AT
+        plain.state.phys.pos[0, 0, 1] = float("nan")
+        try:
+            plain.frame(ins)
+            aborted = False
+        except FloatingPointError:
+            aborted = True
+        require(aborted, "-E: the watchdog raises FloatingPointError")
+        log("phase 16 -E: a NaN in the body positions raises "
+            "FloatingPointError at the next watchdog tick")
+        secs["engine plain"] = round(time.perf_counter() - t_start
+                                     - sum(secs.values()), 1)
+        del plain, r, ref_r, gs, img, w
+        torch.cuda.empty_cache()
+
+        # --------------------------------------------- (b) headless soak
+        hw = build_world(dev, render=False, scene=scene)
+        soak(hw, n_soak, 2, dev)                              # warm-up
+        sts, rate = soak(hw, n_soak, soak_frames, dev)
+        envs = torch.tensor([0, n_soak - 1])
+        for f in range(soak_frames):
+            a = fuzz_draws(0, f, envs.to(dev), 1, dev)
+            b = fuzz_draws(0, f, envs, 1, "cpu")
+            require(torch.equal(a.cpu(), b), f"fuzzer draws frame {f} card "
+                    f"== CPU bit for bit")
+            ia = fuzz_inputs(0, f, env=envs.to(dev), device=dev)
+            ib = fuzz_inputs(0, f, env=envs, device="cpu")
+            err = max(float((x.cpu() - y).abs().max())
+                      for x, y in zip((ia.motion, ia.cam_delta),
+                                      (ib.motion, ib.cam_delta)))
+            require(err <= 1e-6 and torch.equal(ia.jump.cpu(), ib.jump),
+                    f"fuzzer inputs frame {f} card vs CPU within 1e-6 "
+                    f"({err:.3g})")
+        require(bool(finite_mask(sts).all()), "finite_mask all true")
+        require(bool((sts.frame == soak_frames).all()), "soak frame counter")
+        sts.phys.pos[7, 0, 1] = float("nan")
+        fixed, ok = quarantine(sts, hw["tb"].state0)
+        keep = torch.arange(n_soak, device=dev) != 7
+        la, lb = tree_leaves(sts), tree_leaves(fixed)
+        l0 = tree_leaves(hw["tb"].state0)
+        require(not bool(ok[7]) and bool(ok[keep].all()),
+                "quarantine flags env 7 alone")
+        require(all(torch.equal(x[keep], y[keep]) for x, y in zip(la, lb)),
+                f"quarantine leaves the other {n_soak - 1} envs "
+                f"bit-identical")
+        require(all(torch.equal(y[7], z) for y, z in zip(lb, l0)),
+                "quarantine resets env 7 to the initial state")
+        log(f"phase 16 soak (--envs {n_soak}): fuzz_batch + engine_step, "
+            f"{n_soak} envs x {soak_frames} frames: {rate:.0f} env-steps/s "
+            f"(host clock, the card synchronised at both ends); the "
+            f"fuzzer's draws of envs 0 and {n_soak - 1}, frames 0-"
+            f"{soak_frames - 1}, card == CPU bit for bit, inputs within "
+            f"1e-6; finite_mask all true; a NaN in env 7 quarantined, the "
+            f"other envs bit-identical ({smi})")
+        secs["soak"] = round(time.perf_counter() - t_start
+                             - sum(secs.values()), 1)
+        log(f"phase 16 sub-steps, host seconds: {json.dumps(secs)}")
+        del sts, fixed, hw
+        torch.cuda.empty_cache()
+        return dict(launches=launches, per_frame=per_frame, wall=walls,
+                    plain_wall=wall, plain_busy=list(busy),
+                    plain_ops=list(ops), game_wall=gwall,
+                    game_busy=list(gbusy), rate=rate, k1=k1, particles=kp,
+                    k2=k2, report=rep)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def bake_records(rt, tb, lights):

@@ -60,16 +60,30 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every non-None leaf of a NamedTuple/tuple tree;
-    host-side dataclasses (SceneHost) stay as they are."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every non-None leaf of a NamedTuple/tuple/list/dict
+    tree; host-side dataclasses (SceneHost) stay as they are. With
+    ``rest``, trees of the same structure, ``fn`` takes the leaf and the
+    leaves at the same place in each of them."""
     if tree is None or dataclasses.is_dataclass(tree):
         return tree
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if _is_namedtuple(tree):
-        return type(tree)(*(tree_map(fn, x) for x in tree))
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, x) for x in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of ``tree``, in ``tree_map``'s order (dicts by
+    insertion); None, host values and dataclasses are passed over."""
+    out = []
+    tree_map(lambda x: out.append(x) if isinstance(x, torch.Tensor)
+             else None, tree)
+    return out
 
 
 def _convert_node(tree, leaf):

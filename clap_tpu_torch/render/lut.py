@@ -146,7 +146,7 @@ def apply_lut(color, lut_volume):
     """Trilinear 3-D LUT fetch (lut.glsl) of color (..., 3) in [0, 1]."""
     s = lut_volume.shape[0]
     c = torch.clamp(color, 0.0, 1.0) * (s - 1)
-    i0 = torch.clamp(torch.floor(c).to(torch.int32), max=s - 2)
+    i0 = torch.clamp(torch.floor(c).to(torch.int32), 0, s - 2)   # NaN too
     f = c - i0
     i0 = i0.long()
     r0, g0, b0 = i0[..., 0], i0[..., 1], i0[..., 2]

@@ -293,8 +293,10 @@ def vsm_shadow(moments_maps, shadow_mvps, cascade_dists, world_pos,
     atlas = moments_maps.reshape(moments_maps.shape[0], n_casc * s, s, 2)
     u = torch.clamp(u, 0.0, s - 1.001)
     v = torch.clamp(v, 0.0, s - 1.001) + casc.float() * s
-    u0 = torch.floor(u).long()
-    v0 = torch.clamp(torch.floor(v).long(), max=n_casc * s - 2)
+    # clamped on both sides, as the reference's gather clamps: a NaN
+    # position floors to INT64_MIN
+    u0 = torch.clamp(torch.floor(u).long(), 0, s - 1)
+    v0 = torch.clamp(torch.floor(v).long(), 0, n_casc * s - 2)
     fu = (u - u0)[..., None]
     fv = (v - v0)[..., None]
     right = torch.cat([atlas[:, :, 1:], atlas[:, :, -1:]], dim=2)

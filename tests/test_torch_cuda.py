@@ -709,3 +709,135 @@ def test_level_step_matches_cpu_on_card(cuda_device):
         assert torch.equal(got["latch"].cpu(), ref["latch"])
         cams = got["gs"].engine.cameras
         assert torch.equal(got["gs"].engine.camera.pos, cams.pos[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# the engine shell
+# ---------------------------------------------------------------------------
+
+def _demo_engine(dev, seed=5, fuzzer=False):
+    """The demo's graphics Engine (clap_tpu_torch.demo.testbed --render,
+    1 env × 640 × 360) on ``dev`` and its world."""
+    from clap_tpu_torch.demo.testbed import build_world
+    from clap_tpu_torch.engine.core import ClapConfig, Engine
+
+    w = build_world(dev)
+    eng = Engine(ClapConfig(title="testbed", fuzzer=fuzzer, width=640,
+                            height=360, settings=False),
+                 w["tb"].cfg, w["tb"].state0, game_world=w["gw"],
+                 session0=w["session0"], device=dev, seed=seed)
+    eng.attach_graphics(**w["graphics"])
+    return w, eng
+
+
+@pytest.mark.cuda
+def test_engine_frame_equals_game_frame_step_on_card(cuda_device):
+    """3 frames of the graphics Engine and of game_frame_step from the
+    same session, inputs and generator seed: sessions and images equal
+    bit for bit on the card."""
+    from clap_tpu_torch.bridge import tree_leaves, tree_map
+    from clap_tpu_torch.engine.core import graphics_renderer
+    from clap_tpu_torch.engine.frame import game_frame_step
+    from clap_tpu_torch.engine.step import inputs_zero
+    from clap_tpu_torch.scene.testbed import replicate_state
+
+    w, eng = _demo_engine(cuda_device)
+    r = graphics_renderer(w["tb"].state0.mx, **w["graphics"])
+    gs = replicate_state(w["session0"], 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ins = inputs_zero(2, device=cuda_device)
+    ins.motion[0, 0] = 1.0
+    ins.motion[1, 1] = -0.6
+    for _ in range(3):
+        eng.frame(ins)
+        gs, img = game_frame_step(w["gw"], r, gs,
+                                  tree_map(lambda x: x[None], ins),
+                                  generator=gen)
+        assert torch.equal(eng.last_frame, img[0])
+        a, b = tree_leaves(eng.session), tree_leaves(gs)
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    assert float(eng.last_frame.std()) > 0.01
+
+
+@pytest.mark.cuda
+def test_engine_resets_a_nan_that_reaches_the_render_on_card(cuda_device):
+    """A NaN in the live body positions before frame 59: that frame's
+    step and render run over it on the card with no out-of-range index
+    (a device-side assert would leave the context unusable), the watchdog
+    at 60 resets the session to the initial one, and frame 60 is
+    finite."""
+    from clap_tpu_torch.bridge import tree_leaves
+
+    _, eng = _demo_engine(cuda_device)
+    eng.frame_no = 59
+    eng.state.phys.pos[0, 0, 1] = float("nan")
+    eng.frame()
+    torch.cuda.synchronize()
+    assert eng.frame_no == 60
+    assert not bool(torch.isfinite(eng.last_frame).all())
+    a, b = tree_leaves(eng.session), tree_leaves(eng._session0)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    eng.frame()
+    assert bool(torch.isfinite(eng.last_frame).all())
+
+
+@pytest.mark.cuda
+def test_engine_frames_make_no_host_sync_on_card(cuda_device):
+    """With no sound, dump or display attached, the graphics Engine's
+    frames after the first (the fuzzer on) make no synchronizing CUDA
+    call until the watchdog's frame (sync-debug "error"); the watchdog
+    then reads the state once."""
+    _, eng = _demo_engine(cuda_device, fuzzer=True)
+    eng.frame()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng.frame_no < 59:
+            eng.frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.frame_no == 59
+    eng.frame()                                   # the 1 Hz tick
+    assert eng.frame_no == 60
+    assert bool(torch.isfinite(eng.last_frame).all())
+
+
+@pytest.mark.cuda
+def test_fuzzer_draws_card_equal_cpu(cuda_device):
+    """The soak's fuzzer (envs 0 and 4,095, frames 0-59): draws bit for
+    bit, inputs within 1e-6, jumps equal."""
+    from clap_tpu_torch.engine.fuzzer import fuzz_batch, fuzz_draws
+
+    envs = torch.tensor([0, 4095])
+    for f in range(60):
+        a = fuzz_draws(0, f, envs.to(cuda_device), 1, cuda_device)
+        assert torch.equal(a.cpu(), fuzz_draws(0, f, envs, 1, "cpu"))
+    got = fuzz_batch(3, 17, 4096, device=cuda_device)
+    ref = fuzz_batch(3, 17, 4096, device="cpu")
+    assert torch.equal(got.jump.cpu(), ref.jump)
+    for x, y in ((got.motion, ref.motion), (got.cam_delta, ref.cam_delta)):
+        assert float((x.cpu() - y).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_assert_finite_reads_back_once_on_card(cuda_device):
+    """One synchronizing call for a finite tree of many leaves
+    (sync-debug "warn" counts them)."""
+    import warnings
+
+    from clap_tpu_torch.utils.guards import assert_finite
+
+    tree = {f"x{i}": torch.randn(64, 3, device=cuda_device)
+            for i in range(16)}
+    tree["n"] = torch.arange(4, device=cuda_device)
+    assert_finite(tree)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert_finite(tree)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sum("synchroniz" in str(w.message) for w in caught) == 1

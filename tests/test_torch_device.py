@@ -101,6 +101,29 @@ def _scene_parts():
         {"armature": {"head_joint": np.zeros(1, np.int32)}})
 
 
+def _engine_state():
+    """The Engine's state after one frame over a CPU scene, with no device
+    named: the Engine moves the scene and its state to its device."""
+    from clap_tpu_torch.engine.core import ClapConfig, Engine
+
+    tb = ttb.build_testbed(**ENTRY_SCENE, device="cpu")
+    eng = Engine(ClapConfig(settings=False), tb.cfg, tb.state0)
+    eng.frame()
+    return eng.state
+
+
+def _fuzz_batch():
+    from clap_tpu_torch.engine.fuzzer import fuzz_batch
+
+    return fuzz_batch(0, 3, 4)
+
+
+def _demo_world():
+    from clap_tpu_torch.demo.testbed import build_world
+
+    return build_world(render=False, scene=dict(nr_v=12, side=16.0))["tb"]
+
+
 _KEYS = np.linspace(0.0, 1.0, 4).astype(np.float32)
 _Q = np.tile(np.array([0, 0, 0, 1], np.float32), (4, 1))
 
@@ -150,6 +173,9 @@ BUILDERS = {
     "scene_render_setup": _level_render_setup,
     "scene_parts_from_numpy": _scene_parts,
     "build_level": lambda: _chip_smoke().build_level(None, 2),
+    "Engine": _engine_state,
+    "fuzz_batch": _fuzz_batch,
+    "demo_build_world": _demo_world,
     "from_numpy": lambda: from_numpy(Inputs(
         motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
         cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),

@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 58 and bad == "[]"
+    assert int(n) >= 75 and bad == "[]"
 
 
 @pytest.mark.parametrize("module", ["clap_tpu_torch.render.charskin",
@@ -92,6 +92,47 @@ def test_authored_level_modules_import_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
+
+
+ENGINE_SHELL = ["clap_tpu_torch.utils.bus", "clap_tpu_torch.utils.logger",
+                "clap_tpu_torch.utils.profiler",
+                "clap_tpu_torch.utils.settings",
+                "clap_tpu_torch.utils.websocket",
+                "clap_tpu_torch.utils.telemetry",
+                "clap_tpu_torch.utils.guards",
+                "clap_tpu_torch.utils.checkpoint", "clap_tpu_torch.utils.ogg",
+                "clap_tpu_torch.utils.sound", "clap_tpu_torch.utils.librarian",
+                "clap_tpu_torch.engine.fuzzer", "clap_tpu_torch.engine.core",
+                "clap_tpu_torch.render.display", "clap_tpu_torch.demo",
+                "clap_tpu_torch.demo.testbed"]
+
+
+def test_engine_shell_modules_import_no_jax():
+    """The engine shell, the host rim and the testbed demo in one process,
+    JAX and the JAX package looked for after each import."""
+    code = ("import importlib, sys\n"
+            f"for m in {ENGINE_SHELL!r}:\n"
+            "    importlib.import_module(m)\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'clap_tpu')]\n"
+            "    assert not bad, (m, bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+def test_testbed_demo_runs_without_jax():
+    """``python -m clap_tpu_torch.demo.testbed`` at a cut size on the CPU,
+    with no JAX in the process."""
+    code = ("import sys; from clap_tpu_torch.demo import testbed as d; "
+            "d.main(['--device', 'cpu', '--frames', '2', '--fuzzer'], "
+            "scene=dict(nr_v=12, side=16.0, max_entities=32)); "
+            "assert not [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'clap_tpu')]")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "frames: 2" in r.stdout
 
 
 def test_asset_pack_builds_without_jax():

@@ -287,6 +287,55 @@ def test_pcf_shadow(shared):
     assert share >= 0.99 and worst <= bar, (share, worst)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("kind", ["vsm", "pcf"])
+def test_shadow_lookups_take_nan_positions(kind, shared):
+    """A state gone NaN reaches the frame's render before the watchdog
+    resets it. A NaN world position indexes nothing out of range: the
+    lookup gives 1.0 (lit) there, as the JAX package's clamped gathers do,
+    and every other pixel is what it is without the NaNs, bit for bit."""
+    maps, mvps, dists, wpos, vd, nrm, ldir = _pcf_inputs(shared)
+    if kind == "vsm":
+        maps = np.stack([maps, maps * maps], -1)
+    bad = np.random.default_rng(3).random(wpos.shape[:-1]) < 0.1
+    wnan = np.where(bad[..., None], np.float32(np.nan), wpos)
+
+    def port(w):
+        if kind == "vsm":
+            return tshade.vsm_shadow(t(maps), t(mvps), t(dists), t(w),
+                                     t(vd)).numpy()
+        return tshade.pcf_shadow(t(maps), t(mvps), t(dists), t(w), t(vd),
+                                 t(nrm), t(ldir)).numpy()
+
+    def ref(e):
+        m, mv = (maps, mvps) if shared else (maps[e], mvps[e])
+        args = (jnp.asarray(m), jnp.asarray(mv), jnp.asarray(dists),
+                jnp.asarray(wnan[e]), jnp.asarray(vd[e]))
+        if kind == "vsm":
+            return np.asarray(jshade.vsm_shadow(*args))
+        return np.asarray(jshade.pcf_shadow(*args, jnp.asarray(nrm[e]),
+                                            jnp.asarray(ldir)))
+
+    got, clean = port(wnan), port(wpos)
+    want = np.stack([ref(e) for e in range(B)])
+    assert np.array_equal(got[bad], want[bad]) and (got[bad] == 1.0).all()
+    assert np.array_equal(got[~bad], clean[~bad])
+
+
+def test_apply_lut_takes_nan_colours():
+    """apply_lut of a NaN colour indexes nothing out of range and gives NaN
+    there, as the JAX package's does; the other pixels within 1e-6 of the
+    JAX package's."""
+    jv = jlut.bake_lut(jlut.LUT_PRESETS[1], 16)
+    color = np.random.default_rng(5).uniform(
+        -0.1, 1.1, (B, 32, 32, 3)).astype(np.float32)
+    color[:, ::5, ::3, 1] = np.nan
+    ref = np.asarray(jlut.apply_lut(jnp.asarray(color), jv))
+    got = tlut.apply_lut(t(color), t(jv)).numpy()
+    assert np.isnan(got[:, ::5, ::3]).all()
+    np.testing.assert_allclose(got, ref, equal_nan=True, **TIGHT)
+
+
 def test_material_fog_in_shade_pixels():
     """shade_pixels(fog_density=, shadow_tint=) on random pixels against
     the JAX package's, env by env, within 1e-6."""
