@@ -57,7 +57,7 @@ Phases, one or more lines each:
 9. full frame — the JAX bench's ``full_frame`` and ``full_frame_dense``
    (bench.py:168-278) at 1280 × 720: hand-built terrain (and 256 cubes,
    about 117k triangles, raster_cap 4096) with corner-expanded static
-   streams. 1 warm-up + 5 frames, wall ms and device busy ms
+   streams. 1 warm-up + 3 frames, wall ms and device busy ms
    (torch.profiler; median and range), peak memory, tiles at capacity,
    the image checks (finite, std > 0.01, a nudged camera changes the
    image); K1 and K2 bit-exact on each
@@ -88,7 +88,7 @@ Phases, one or more lines each:
     occlusion, then GameFrameRenderer): 1 env × 640 × 360, two spore
     systems of 256 live particles drawn by K1, film grain on the committed
     blue noise, textured skinned characters, the single-env assembly and
-    the 1,024² static bake. 1 warm-up + 10 frames, wall and device busy ms
+    the 1,024² static bake. 1 warm-up + 5 frames, wall and device busy ms
     (median and range), the render alone, peak memory, launches (two K1 a
     frame, one K2 and the bake); every frame finite with std > 0.01,
     particles and grain change pixels; K1 bit-exact on the particle and
@@ -141,6 +141,27 @@ Phases, one or more lines each:
     CPU for envs 0 and 4,095 over frames 0-59 (inputs within 1e-6),
     ``finite_mask``, a NaN in env 7 through ``quarantine``.
 
+17. UI, overlay and demos — (a) over 8 frames of the Engine's testbed
+    frame (graphics only, 1 env × 640 × 360; K1 surface and particles, K2
+    atlas) a caller's overlay: an osd line, a nested Menu and an
+    InteractiveDebugUI (standard_modules, one Adjustable) driven by
+    InputRecords, a toast slid in by a UiAnimator, draw_lines of every
+    body's AABB and a cross at each character; pixels change only inside
+    the quads and on the line pixels, the card's composite equals the CPU
+    composite bit for bit, no host sync in it (sync-debug "error"), ms per
+    composite (wall, device busy) beside the frame's, K1/K2 bit-exact on the
+    last overlay frame's records, timed and bounded; (b)
+    render_frame_debug → compose_pass_browser of that frame (120 × 90
+    thumbnails, the counts line; the font used); (c) ``python -m
+    clap_tpu_torch.demo.flythrough`` at its defaults (8 frames × 20 sim
+    frames at 640 × 360): one K1 and one K2 a frame, each frame finite with
+    std > 0.01 and unlike the one before, ms per sim frame and per render,
+    K1/K2 bit-exact on the last frame's records, timed and bounded, that
+    frame against the port's CPU path (PSNR >= 35 dB); (d) the platformer
+    demo's run (120 frames, Tab at 80) against the port's CPU run, made
+    after the card's: the same events, control frames and footstep log,
+    positions within 1e-3; ms/frame.
+
 Each new path's kernel launches are counted from 0 over its driven run.
 
 Then a JSON line of the kernels (``raster_tile`` / ``raster_depth`` with
@@ -148,13 +169,15 @@ each path's launches and kernel numbers as prefixed fields: ``textured_``,
 ``full_frame_``, ``full_frame_dense_``, ``production_``, ``batched_``,
 ``shading_rate_``, ``game_frame_``, ``particles_``, ``msaa_``,
 ``shadow_msaa_``, ``level_``, ``level_batch_``, ``engine_``,
-``engine_particles_``), the
+``engine_particles_``, ``overlay_``, ``overlay_particles_``,
+``flythrough_``), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -448,6 +471,10 @@ def main() -> int:
     # -------------------------------------------------------------- 16
     eng = run_engine_phase(dev, smi, require, check_tile, check_depth)
     lap("16")
+
+    # -------------------------------------------------------------- 17
+    ovl = run_overlay_phase(dev, smi, require, check_tile, check_depth)
+    lap("17")
     log(f"phase host seconds: {json.dumps(laps)}, total "
         f"{sum(laps.values()):.0f} s")
 
@@ -493,6 +520,14 @@ def main() -> int:
         if k == "raster_tile":
             f.update(fields("engine_particles", eng["launches"][k],
                             eng["particles"]))
+        # the UI slice: the Engine's frame under the overlay (its surface
+        # and particles on K1, its cascade atlas on K2) and the flythrough
+        # demo's frames
+        f.update(fields("overlay", ovl["launches"][k], ovl["overlay_" + rep]))
+        if k == "raster_tile":
+            f.update(fields("overlay_particles", ovl["launches"][k],
+                            ovl["overlay_particles"]))
+        f.update(fields("flythrough", ovl["fly_launches"][k], ovl[rep]))
         return f
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
@@ -1264,7 +1299,7 @@ def image_checks(phase, require, img0, img1):
 
 
 def run_full_frame_phase(dev, smi, require, check_tile, check_depth,
-                         reps=5):
+                         reps=3):
     """Phase 9: the JAX bench's ``full_frame`` (bench.py:168-278) at 1280 ×
     720, its default scene (nr_v 96, no cubes, raster_cap 0) and the dense
     one (nr_v 240, 256 cubes, raster_cap 4096), both with corner-expanded
@@ -1348,7 +1383,7 @@ def run_full_frame_phase(dev, smi, require, check_tile, check_depth,
 
 
 def run_production_phase(dev, smi, require, check_tile, check_depth,
-                         reps=5):
+                         reps=3):
     """Phase 10: the JAX bench's ``full_frame_production``
     (bench.py:281-420): the dense scene as render tables, kernel_attrs,
     cluster records with cap 81,920, the terrain baked once into a 2,048²
@@ -1428,7 +1463,7 @@ def run_production_phase(dev, smi, require, check_tile, check_depth,
                 k2_cascade=k2c)
 
 
-def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
+def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=3):
     """Phase 11: the JAX bench's ``batched_render`` (bench.py:423-497): 64
     views × 256² of one shared terrain, kernel_attrs over member geometry,
     ``render_frame_batch`` with one shared light atlas: 1 warm-up +
@@ -1526,7 +1561,7 @@ def run_batched_phase(dev, smi, require, check_tile, check_depth, reps=5):
 
 
 def run_shading_rate_phase(dev, smi, sync, require, check_tile, check_depth,
-                           reps=5):
+                           reps=3):
     """Phase 12: the JAX bench's ``shading_rate`` (bench.py:739-755,
     879-884): the skinned flagship at 8 envs rendered at internal_scale 2
     and 1 from the same state after one step, the PSNR between them; then
@@ -1594,7 +1629,7 @@ def run_shading_rate_phase(dev, smi, sync, require, check_tile, check_depth,
 
 
 def run_game_frame_phase(dev, smi, require, check_tile, check_depth,
-                         frames=10, reps=5):
+                         frames=5, reps=3):
     """Phase 13: the game's own frame (demo/testbed.py:62-200 through
     ``game_frame_step``: game_step with the camera occlusion, then
     GameFrameRenderer) at 1 env × 640 × 360 with two spore systems of 256
@@ -1841,78 +1876,58 @@ VARIANT_FRAMES = {"beam": 45, "roster4": 8}
 LEVEL_WALL_FRAMES = 3      # each render's wall-timed frames
 
 
-def level_scene(dev, variant="level57"):
-    """An authored scene through the port's loader on ``dev``:
-    ``level57`` (demo/level57.json with the level's asset pack),
-    ``roster4`` (the level with two more characters, a roster of 4) or
-    ``beam`` (the rotating beam). Returns (LoadedScene, seconds)."""
+def level_doc(variant="level57"):
+    """The level's scene.json text: ``level57`` (demo/level57.json) or
+    ``roster4`` (the level with two more characters, a roster of 4)."""
     from pathlib import Path
 
-    from clap_tpu_torch.scene.assets57 import asset_loader, make_box_gltf
-    from clap_tpu_torch.scene.loader import load_scene
-
-    if variant == "beam":
-        doc, kw = json.dumps(ROTATING_BEAM), dict(max_entities=8,
-                                                  max_bodies=2)
-
-        def loader(name):
-            dims = [float(x) for x in name.split(":")[1].split(",")]
-            return make_box_gltf(*dims).encode()
-    else:
-        level = json.loads((Path(__file__).resolve().parent / "demo"
-                            / "level57.json").read_text())
-        if variant == "roster4":
-            level["model"][3]["character"] += [
-                {"name": "hero.2", "position": [-5.0, 0.0, 0.0]},
-                {"name": "hero.3", "position": [-7.5, 0.0, 0.0]}]
-        doc, kw, loader = json.dumps(level), dict(max_entities=16,
-                                                  max_bodies=4), asset_loader
-    t0 = time.perf_counter()
-    scene = load_scene(doc, asset_loader=loader, device=dev, **kw)
-    return scene, time.perf_counter() - t0
+    level = json.loads((Path(__file__).resolve().parent / "demo"
+                        / "level57.json").read_text())
+    if variant == "roster4":
+        level["model"][3]["character"] += [
+            {"name": "hero.2", "position": [-5.0, 0.0, 0.0]},
+            {"name": "hero.3", "position": [-7.5, 0.0, 0.0]}]
+    return json.dumps(level)
 
 
 def build_level(dev, n_envs, variant="level57"):
-    """The level's game on ``dev`` as demo/platformer.py:46-66 wires it:
-    the demo rig on every character, footstep SFX, the switch/platform
-    rules of the level's gameplay blocks, ``n_envs`` envs at the loaded
-    state. The beam has no gameplay blocks and no rigs; env b turns it by
-    2π·b/n_envs about y, the character above x = 2.5. Returns a dict:
-    scene, load_s, gw, gs."""
+    """The level's game on ``dev``, ``n_envs`` envs at the loaded state:
+    ``level57`` and ``roster4`` wired by the platformer demo's
+    ``build_world`` (clap_tpu_torch/demo/platformer.py, as
+    demo/platformer.py:46-66: the demo rig on every character, footstep
+    SFX, the switch/platform rules of the level's gameplay blocks); the
+    rotating ``beam`` has no gameplay blocks and no rigs: env b turns it
+    by 2π·b/n_envs about y, the character above x = 2.5. Returns a dict:
+    scene, load_s (the load's host seconds), gw, gs."""
     import torch
 
-    from clap_tpu_torch.anim.system import (anim_instances_init,
-                                            anim_sfx_from_names)
-    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
-    from clap_tpu_torch.engine.gamelogic import game_state_init
+    from clap_tpu_torch.demo.platformer import build_world
     from clap_tpu_torch.device import resolve_device
+    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
     from clap_tpu_torch.scene import testbed as tbm
+    from clap_tpu_torch.scene.assets57 import make_box_gltf
+    from clap_tpu_torch.scene.loader import load_scene
 
     dev = resolve_device(dev)
-    scene, load_s = level_scene(dev, variant)
-    C = scene.cfg.char_params.body.shape[0]
-    if variant == "beam":
-        gw = GameWorld(scene=scene.cfg)
-        gs = tbm.replicate_state(GameSessionState(engine=scene.state0),
-                                 n_envs)
-        ang = torch.arange(n_envs, device=dev) * (2 * math.pi / n_envs)
-        gs.engine.rot[:, 1] = torch.stack(
-            [torch.zeros_like(ang), torch.sin(ang / 2),
-             torch.zeros_like(ang), torch.cos(ang / 2)], -1)
-    else:
-        sk, lib, acfg = tbm.build_demo_rig(device=dev)
-        clips = ["idle", "motion", "jump", "fall"]
-        gw = GameWorld(scene=scene.cfg, game=scene.game, anim=acfg,
-                       anim_sk=sk, anim_lib=lib,
-                       sfx=anim_sfx_from_names(clips, motion_segments=4,
-                                               device=dev))
-        K = scene.game.switch_entity.shape[0]
-        gs = tbm.replicate_state(GameSessionState(
-            engine=scene.state0, game=game_state_init(K, C, device=dev),
-            anim=anim_instances_init(C, with_sfx=True, device=dev),
-            joint_mats=torch.eye(4, device=dev).repeat(C, 3, 1, 1),
-            sfx_events=torch.zeros(C, 2, dtype=torch.bool, device=dev)),
-            n_envs)
+    if variant != "beam":
+        w = build_world(dev, doc=level_doc(variant))
+        return dict(scene=w["scene"], load_s=w["load_s"], gw=w["gw"],
+                    gs=tbm.replicate_state(w["session0"], n_envs))
+
+    def loader(name):
+        dims = [float(x) for x in name.split(":")[1].split(",")]
+        return make_box_gltf(*dims).encode()
+
+    t0 = time.perf_counter()
+    scene = load_scene(json.dumps(ROTATING_BEAM), asset_loader=loader,
+                       device=dev, max_entities=8, max_bodies=2)
+    load_s = time.perf_counter() - t0
+    gw = GameWorld(scene=scene.cfg)
+    gs = tbm.replicate_state(GameSessionState(engine=scene.state0), n_envs)
+    ang = torch.arange(n_envs, device=dev) * (2 * math.pi / n_envs)
+    gs.engine.rot[:, 1] = torch.stack(
+        [torch.zeros_like(ang), torch.sin(ang / 2),
+         torch.zeros_like(ang), torch.cos(ang / 2)], -1)
     return dict(scene=scene, load_s=load_s, gw=gw, gs=gs)
 
 
@@ -2647,6 +2662,429 @@ def run_engine_phase(dev, smi, require, check_tile, check_depth, frames=120,
                     k2=k2, report=rep)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 17: the records that drive the overlay, one pair per frame (the
+# menu's, the debug panel's): the menu goes down into SETTINGS and its
+# nested GRAPHICS, fires SHADOWS and backs out to its root; the panel
+# opens, climbs (wrapping) from its first row to the frame module's
+# Adjustable, nudges it up and folds the physics module
+OVERLAY_INPUTS = (
+    (dict(down=True), dict(menu_toggle=True)),
+    (dict(enter=True), dict(up=True)),
+    (dict(down=True), dict(up=True)),
+    (dict(up=True), dict(up=True)),
+    (dict(enter=True), dict(up=True)),
+    (dict(enter=True), dict(right=True)),
+    (dict(menu_toggle=True), dict(down=True)),
+    (dict(menu_toggle=True), dict(enter=True)),
+)
+PLATFORMER_FRAMES = (120, 80)     # phase 17 (d): frames, the Tab's frame
+
+
+def overlay_ui(eng, font=None):
+    """The UI a caller lays over an Engine's frame (the port's render/ui,
+    ui_anim and debugui): an ``osd`` line, a ``Menu`` of nested items, an
+    ``InteractiveDebugUI`` with ``standard_modules(eng)`` (every module
+    enabled) and one ``Adjustable``, and a toast that a ``UiAnimator``
+    slides in. Returns a dict of them and ``fired`` (the menu leaves that
+    fired)."""
+    from clap_tpu_torch.render.debugui import (Adjustable,
+                                               InteractiveDebugUI,
+                                               standard_modules)
+    from clap_tpu_torch.render.ui import AF, Menu, MenuItem, UiElement, osd
+    from clap_tpu_torch.render.ui_anim import UiAnimator
+
+    W, H = eng.renderer.opts.width, eng.renderer.opts.height
+    fired = []
+
+    def leaf(menu, item):
+        fired.append(item.name)
+
+    menu = Menu([MenuItem("RESUME", fn=leaf),
+                 MenuItem("SETTINGS", items=[
+                     MenuItem("GRAPHICS", items=[
+                         MenuItem("SHADOWS", fn=leaf),
+                         MenuItem("GRAIN", fn=leaf)]),
+                     MenuItem("AUDIO", fn=leaf)]),
+                 MenuItem("QUIT", fn=leaf)], W, H, font=font)
+    dui = InteractiveDebugUI(width=W, height=H, font=font)
+    standard_modules(dui, eng)
+    for name in dui.modules:
+        dui.toggle(name, True)
+    tweak = {"exposure": 1.0}
+    dui.register_adjustable("frame", "exposure", Adjustable(
+        get=lambda: tweak["exposure"],
+        set=lambda v: tweak.__setitem__("exposure", v), step=0.25))
+    toast = UiElement(text="CHECKPOINT SAVED", text_scale=2, font=font,
+                      affinity=AF.RIGHT | AF.BOTTOM, x=16.0, y=-60.0,
+                      color=(0.1, 0.3, 0.1, 0.7))
+    anim = UiAnimator()
+    anim.slide_in(toast, -60.0, 16.0, duration=0.1)
+    return dict(menu=menu, dui=dui, hud=osd("CLAP-TPU TESTBED  ESC: MENU",
+                                            font=font),
+                toast=toast, anim=anim, fired=fired, tweak=tweak)
+
+
+def overlay_boxes(eng):
+    """The bodies the overlay boxes (each active slot, read once: a host
+    fact of the scene), their half extents (the capsule's, y the long
+    axis; on the device) and the characters' body slots."""
+    import torch
+
+    b = eng.scene_cfg.bodies
+    active = [i for i, a in enumerate(b.active.tolist()) if a]
+    ext = torch.stack([b.radius, b.half_len + b.radius, b.radius], -1)
+    return dict(bodies=active, ext=ext, chars=eng.scene_cfg.host.char_body)
+
+
+def overlay_layout(ui, eng, f, boxes):
+    """Frame ``f``'s overlay on the host, as a caller makes it: route the
+    frame's records to the menu and the debug panel, step the animation,
+    lay out the quads (osd and toast, menu, panel column); build the debug
+    lines of the Engine's state on its device (an AABB per body, a cross
+    at each character). Returns (quads, lines, view (4, 4), proj)."""
+    from clap_tpu_torch.engine.input import InputRecord
+    from clap_tpu_torch.render.debug_draw import (add_aabb, add_cross,
+                                                  lines_empty)
+    from clap_tpu_torch.render.ui import ui_layout
+
+    W, H = eng.renderer.opts.width, eng.renderer.opts.height
+    rm, rd = OVERLAY_INPUTS[f % len(OVERLAY_INPUTS)]
+    ui["menu"].handle_input(InputRecord(**rm))
+    ui["dui"].handle_input(InputRecord(**rd))
+    ui["anim"].step(1 / 60)
+    quads = ui_layout([ui["hud"], ui["toast"]], W, H) + ui["menu"].quads \
+        + ui_layout(ui["dui"].build_elements(), W, H)
+    pos = eng.state.phys.pos[0]
+    dev = pos.device
+    dl, idx = lines_empty(device=dev), 0
+    for i in boxes["bodies"]:
+        dl, idx = add_aabb(dl, idx, pos[i] - boxes["ext"][i],
+                           pos[i] + boxes["ext"][i])
+    for i in boxes["chars"]:
+        dl, idx = add_cross(dl, idx, pos[i], 0.4)
+    return quads, dl, eng.renderer.view(eng.state)[0], eng.renderer.proj
+
+
+def overlay(frame, quads, lines, view, proj):
+    """The composite of one frame (H, W, 3): the UI quads, then the debug
+    lines."""
+    from clap_tpu_torch.render.debug_draw import draw_lines
+    from clap_tpu_torch.render.ui import ui_compose
+
+    return draw_lines(ui_compose(frame, quads), lines, view, proj)
+
+
+def quad_mask(quads, H, W, dev):
+    """(H, W) bool: the pixels the quads may draw, each clipped rectangle
+    and its text's (ui_compose places the text 4 px in from the clipped
+    corner, so on a quad cut by the frame's edge it can reach past the
+    quad)."""
+    import torch
+
+    m = torch.zeros(H, W, dtype=torch.bool, device=dev)
+    for q in quads:
+        x0, y0, x1, y1 = max(q.x0, 0), max(q.y0, 0), min(q.x1, W), \
+            min(q.y1, H)
+        if x1 <= x0 or y1 <= y0:
+            continue
+        m[y0:y1, x0:x1] = True
+        if q.text_bitmap is not None:
+            th, tw = q.text_bitmap.shape
+            m[y0 + 4:y0 + 4 + th, x0 + 4:x0 + 4 + tw] = True
+    return m
+
+
+def to_device(tree, dev):
+    """A tree (dicts and NamedTuples) with its tensors on ``dev``."""
+    import torch
+
+    from clap_tpu_torch.bridge import tree_map
+
+    return tree_map(lambda x: x.to(dev) if torch.is_tensor(x) else x, tree)
+
+
+def run_overlay_phase(dev, smi, require, check_tile, check_depth,
+                      size=(640, 360), scene=None, frames=8, fly_args=(),
+                      plat=PLATFORMER_FRAMES, reps=3):
+    """Phase 17: the UI layer, the debug overlay, the pass browser and the
+    two other demos on the card. (a) Over ``frames`` frames of the
+    Engine's testbed frame (``build_world``, graphics only, 1 env at
+    ``size``) a caller's overlay (``overlay_ui`` / ``overlay_layout``):
+    pixels change only inside the quads and on the line pixels, the card's
+    composite equals the CPU composite bit for bit, no host sync in it
+    (sync-debug "error"), ms per composite beside the frame's; (b)
+    ``render_frame_debug`` → ``compose_pass_browser`` of the last frame;
+    (c) ``python -m clap_tpu_torch.demo.flythrough`` (``fly_args`` added to
+    its defaults) with K1/K2 on its last frame's records, each frame
+    checked, the last against the CPU path; (d) the platformer's ``run``
+    of ``plat`` (frames, Tab frame) against the port's CPU run, made after
+    the card's timed run, so no CPU job runs beside a timed window. Size
+    arguments let it run small on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from clap_tpu_torch.demo import flythrough as F
+    from clap_tpu_torch.demo import platformer as P
+    from clap_tpu_torch.demo.testbed import build_world
+    from clap_tpu_torch.engine.core import ClapConfig, Engine
+    from clap_tpu_torch.render.debug_draw import draw_lines
+    from clap_tpu_torch.render.font import load_font
+    from clap_tpu_torch.render.passbrowser import (compose_pass_browser,
+                                                   render_frame_debug)
+    from clap_tpu_torch.render.pipeline import (clip_transform,
+                                                gather_records,
+                                                shadow_records)
+    from clap_tpu_torch.render.ui import ui_compose
+    from clap_tpu_torch.render.view import cascade_subviews
+
+    sync = torch.cuda.synchronize
+    W, H = size
+    secs = {}
+    t_start = time.perf_counter()
+
+    def lap(name):
+        secs[name] = round(time.perf_counter() - t_start
+                           - sum(secs.values()), 1)
+
+    # ------------------------------------- (a) the overlay over the frame
+    font = load_font(14)
+    font_name = "GlyphAtlas at size 14" if font is not None \
+        else "5x7 (no PIL or face)"
+    w = build_world(dev, width=W, height=H, scene=scene)
+    tb = w["tb"]
+    eng = Engine(ClapConfig(title="testbed", graphics=True, width=W,
+                            height=H, settings=False),
+                 tb.cfg, tb.state0, game_world=w["gw"],
+                 session0=w["session0"], device=dev)
+    eng.attach_graphics(**w["graphics"])
+    ui = overlay_ui(eng, font)
+    boxes = overlay_boxes(eng)
+    reset_launches()
+    fwall, cwall, worst, n_quad_px, n_line_px = [], [], 0.0, 0, 0
+    for f in range(frames):
+        sync()
+        t0 = time.perf_counter()
+        eng.frame()
+        sync()
+        fwall.append((time.perf_counter() - t0) * 1e3)
+        frame = eng.last_frame
+        quads, dl, view, proj = overlay_layout(ui, eng, f, boxes)
+        sync()
+        t0 = time.perf_counter()
+        out = overlay(frame, quads, dl, view, proj)
+        sync()
+        cwall.append((time.perf_counter() - t0) * 1e3)
+        ui_out = ui_compose(frame, quads)
+        in_quads = quad_mask(quads, H, W, frame.device)
+        on_lines = torch.isfinite(draw_lines(
+            torch.full_like(frame, float("nan")), dl, view, proj)).all(-1)
+        ui_px = (ui_out != frame).any(-1)
+        line_px = (out != ui_out).any(-1)
+        require(not bool((ui_px & ~in_quads).any()),
+                f"overlay frame {f}: the UI changes pixels only inside its "
+                f"quads")
+        require(not bool((line_px & ~on_lines).any()),
+                f"overlay frame {f}: the lines change only line pixels")
+        n_quad_px = max(n_quad_px, int(ui_px.sum()))
+        n_line_px = max(n_line_px, int(line_px.sum()))
+        cpu = overlay(frame.cpu(), quads, to_device(dl, "cpu"), view.cpu(),
+                      proj.cpu())
+        worst = max(worst, float((out.cpu() - cpu).abs().max()))
+        require(torch.equal(out.cpu(), cpu),
+                f"overlay frame {f}: the card's composite equals the CPU's "
+                f"bit for bit (max diff {worst:.3g})")
+    launches = read_launches()
+    okp, ok1, ok2 = game_frame_kernels(
+        "phase 17", "overlay frame", eng.renderer, eng.state,
+        eng.session.particles, eng.session.joint_mats, check_tile,
+        check_depth, smi)
+    require(n_quad_px > 0 and n_line_px > 0,
+            f"the UI ({n_quad_px} px) and the lines ({n_line_px} px) draw")
+    require(all(v > 0 for v in launches.values()),
+            f"K1 and K2 launched under the overlay: {launches}")
+    require(ui["fired"] == ["SHADOWS"] and len(ui["menu"].stack) == 1
+            and ui["tweak"]["exposure"] == 1.25
+            and not ui["dui"].modules["physics"].unfolded,
+            f"the menu fired {ui['fired']} and is back at its root, the "
+            f"panel set {ui['tweak']} and folded the physics module")
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        overlay(frame, quads, dl, view, proj)
+        sync_free = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cbusy = [device_busy_ms(lambda: overlay(frame, quads, dl, view, proj))
+             for _ in range(reps)]
+    fbusy = [device_busy_ms(eng.frame) for _ in range(reps)]
+    log(f"phase 17 overlay over the Engine's frame (1 env x {W}x{H}, "
+        f"{frames} frames): {len(quads)} quads (osd, toast, "
+        f"{len(ui['menu'].items)} menu items, the debug column), "
+        f"{len(boxes['bodies'])} AABBs and "
+        f"{len(boxes['chars'])} crosses; font {font_name}; composite "
+        f"(ui_compose + draw_lines) {spread(cwall)} wall / {spread(cbusy)} "
+        f"device busy; the frame itself {spread(fwall)} wall / "
+        f"{spread(fbusy)} device busy; pixels change only in the quads "
+        f"(up to {n_quad_px}) and on the lines (up to {n_line_px}); card "
+        f"== CPU bit for bit (max diff {worst:.3g}); no host sync in the "
+        f"composite: {sync_free}; menu leaves fired {ui['fired']}; "
+        f"launches {launches} ({smi})")
+    lap("overlay")
+
+    # ------------------------------------------- (b) the pass browser
+    r, st = eng.renderer, eng.state
+    parts, jm = eng.session.particles, eng.session.joint_mats
+    sync()
+    t0 = time.perf_counter()
+    view = r.view(st)
+    img, taps, counts = render_frame_debug(
+        r.opts, r.geometry(st, view, jm), view, r.proj, r.lights,
+        st.camera.pos, far=r.far, static_shadow=r.static_shadow,
+        textures=r.textures, grain_noise=r.grain_noise,
+        particles=r.particle_args(parts))
+    sync()
+    t_debug = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pic = compose_pass_browser({k: v[0] for k, v in taps.items()},
+                               {k: v[0] for k, v in counts.items()},
+                               font=font)
+    t_pic = time.perf_counter() - t0
+    rows = -(-len(taps) // 4)
+    require(pic.shape == (rows * 108 + 4 + 18, 500, 3),
+            f"pass browser picture shape {pic.shape}")
+    require(bool(torch.isfinite(torch.from_numpy(pic)).all()),
+            "pass browser picture finite")
+    cells = [float(pic[4 + 14 + 108 * (i // 4):4 + 14 + 108 * (i // 4) + 90,
+                       4 + 124 * (i % 4):4 + 124 * (i % 4) + 120].std())
+             for i in range(len(taps))]
+    means = [round(float(pic[4 + 14 + 108 * (i // 4):4 + 14 + 108 * (i // 4)
+                             + 90, 4 + 124 * (i % 4):
+                             4 + 124 * (i % 4) + 120].mean()), 4)
+             for i in range(len(taps))]
+    require(len(set(means)) == len(taps),
+            f"the {len(taps)} thumbnails differ from one another: {means}")
+    require(torch.equal(img, r(st, parts, None, jm)),
+            "render_frame_debug draws the Engine's frame")
+    log(f"phase 17 pass browser (render_frame_debug -> compose_pass_browser,"
+        f" 120x90 thumbnails and the counts line): {len(taps)} passes "
+        f"{sorted(taps)}, picture {pic.shape[1]}x{pic.shape[0]}, finite, "
+        f"thumbnail std {min(cells):.4f}..{max(cells):.4f}; counts "
+        f"{ {k: int(v[0]) for k, v in counts.items()} }; font {font_name}; "
+        f"render_frame_debug {t_debug * 1e3:.1f} ms, compose (host numpy, "
+        f"labels through ui_compose on the CPU) {t_pic * 1e3:.1f} ms "
+        f"({smi})")
+    del taps, img
+    lap("pass_browser")
+
+    # -------------------------------------------------- (c) the flythrough
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fly_")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        fw, imgs = F.main(["--out", tmp, *fly_args])
+        sync()
+        t_fly = time.perf_counter() - t0
+        fly_launches = read_launches()
+        n_png = len([x for x in os.listdir(tmp) if x.endswith(".png")])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nf = len(imgs)
+    n_sim = int(fly_args[fly_args.index("--sim-frames") + 1]) \
+        if "--sim-frames" in fly_args else 20
+    fo = fw["opts"]
+    require(n_png == nf and fly_launches == {"raster_tile": nf,
+                                             "raster_depth": nf},
+            f"flythrough: {nf} PNGs ({n_png}) and one K1 and one K2 per "
+            f"frame: {fly_launches}")
+    stds = []
+    for i, im in enumerate(imgs):
+        require(bool(torch.isfinite(im).all()), f"flythrough frame {i} "
+                f"finite")
+        stds.append(float(im.std()))
+        require(stds[-1] > 0.01, f"flythrough frame {i} std > 0.01")
+        if i:
+            require(float((im - imgs[i - 1]).abs().max()) > 1e-3,
+                    f"flythrough frame {i} differs from frame {i - 1}")
+    fst = fw["st"]
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fst = F.sim_step(fw, fst)
+    sync()
+    sim_ms = (time.perf_counter() - t0) * 100.0
+    sim_busy = device_busy_ms(lambda: F.sim_step(fw, fst))
+    yaw = 2 * math.pi * (nf - 1) / nf
+    rwall, rbusy = frame_times(lambda: F.render(fw, fw["st"], yaw), reps)
+    view, proj, eye = F.camera(fw, fw["st"], yaw)
+    geom = F.geometry(fw, fw["st"], view, proj, eye)
+    rec, binned = gather_records(fo, geom, clip_transform(
+        geom.verts, view, proj))[:2]
+    k1 = kernel_report("phase 17", f"flythrough surface {fo.width}x"
+                       f"{fo.height} ({rec.shape[-1]} records)", check_tile,
+                       rec, binned, (fo.width, fo.height), False, smi)
+    casc, _ = cascade_subviews(view, proj, fw["lights"].direction[0], 0.1,
+                               200.0)
+    srec, sbin, dims = shadow_records(fo, geom, casc.view, casc.proj)
+    k2 = kernel_report("phase 17", f"flythrough cascade atlas {dims[1]}x"
+                       f"{dims[0]}", check_depth, srec, sbin, dims, True,
+                       smi)
+    cw = to_device(fw, "cpu")
+    ref = F.render(cw, cw["st"], yaw)[0]
+    mse = float(((imgs[-1].cpu() - ref) ** 2).mean())
+    fly_psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+    require(fly_psnr >= 35.0, "flythrough frame PSNR >= 35 dB vs the CPU")
+    log(f"phase 17 flythrough (python -m clap_tpu_torch.demo.flythrough "
+        f"{' '.join(fly_args) or 'at its defaults'}): {nf} frames x "
+        f"{n_sim} sim frames at "
+        f"{fo.width}x{fo.height} in {t_fly:.1f} s, every frame finite (std "
+        f"{min(stds):.4f}..{max(stds):.4f}) and unlike the one before; "
+        f"{sim_ms:.2f} ms wall / {sim_busy:.2f} ms device busy per sim "
+        f"frame, the render {spread(rwall)} wall / {spread(rbusy)} device "
+        f"busy; launches {fly_launches}; the last frame vs the port's CPU "
+        f"path PSNR {fly_psnr:.1f} dB ({smi})")
+    del fw, cw, imgs, rec, srec
+    lap("flythrough")
+
+    # --------------------------------------------------- (d) the platformer
+    n_plat, sw = plat
+    pw = P.build_world(dev)
+    sync()
+    t0 = time.perf_counter()
+    got = P.run(pw, n_plat, sw)
+    sync()
+    plat_ms = (time.perf_counter() - t0) * 1e3 / n_plat
+    t0 = time.perf_counter()
+    ref = P.run(P.build_world("cpu"), n_plat, sw)
+    ref_s = time.perf_counter() - t0
+    perr = float((got["traj"].cpu() - ref["traj"]).abs().max())
+    require(got["events"] == ref["events"],
+            f"platformer events card == CPU: {got['events']} vs "
+            f"{ref['events']}")
+    require(got["control"] == ref["control"], "platformer control frames")
+    require(perr <= 1e-3, f"platformer positions within 1e-3 ({perr:.3g})")
+    require(got["footsteps"] == ref["footsteps"],
+            "platformer footstep log card == CPU")
+    log(f"phase 17 platformer (clap_tpu_torch.demo.platformer run, "
+        f"{n_plat} frames, Tab at {sw}): {plat_ms:.1f} ms/frame (host-"
+        f"paced, a host read of the control slot, the footsteps and the "
+        f"switches each frame), so the demo's 900 default frames take about"
+        f" {plat_ms * 0.9:.0f} s; events {got['events']}; "
+        f"{len(got['footsteps'])} footsteps; against the port's CPU run: "
+        f"the same events, control frames and footstep log, positions "
+        f"within {perr:.3g}; the CPU run {ref_s:.1f} s, after the card's "
+        f"({smi})")
+    lap("platformer")
+    log(f"phase 17 sub-steps, host seconds: {json.dumps(secs)}")
+    del eng, w, pw, got
+    torch.cuda.empty_cache()
+    return dict(launches=launches, composite_wall=cwall,
+                composite_busy=cbusy, frame_wall=fwall, frame_busy=fbusy,
+                fly_launches=fly_launches, k1=k1, k2=k2, overlay_k1=ok1,
+                overlay_particles=okp, overlay_k2=ok2, plat_ms=plat_ms)
 
 
 def bake_records(rt, tb, lights):

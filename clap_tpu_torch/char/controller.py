@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from .. import mathx as mx
+from ..device import resolve_device
 from ..mathx import cross
 from ..physics.narrowphase import StaticWorld, raycast_down
 from ..physics.sweep import sweep_capsule
@@ -69,6 +70,24 @@ class CharState(NamedTuple):
     hist_head: torch.Tensor     # int32
     hist_wrapped: torch.Tensor  # bool
     dash_time: torch.Tensor     # f32 seconds since dash start (-1 = off)
+
+
+def char_state_init(device=None) -> CharState:
+    """One character's initial state (unbatched) on ``device`` (the card
+    unless named)."""
+    dev = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    no = torch.tensor(False, device=dev)
+    return CharState(
+        velocity=torch.zeros(3, **f32),
+        normal=torch.tensor([0.0, 1.0, 0.0], **f32),
+        state=torch.tensor(CS_START, **i32), airborne=no, jump=no.clone(),
+        moved=torch.tensor(0, **i32), jump_start_cnt=torch.tensor(0, **i32),
+        collision=torch.tensor(-1, **i32), push_body=torch.tensor(-1, **i32),
+        history=torch.zeros(POS_HISTORY_MAX, 3, **f32),
+        hist_head=torch.tensor(0, **i32), hist_wrapped=no.clone(),
+        dash_time=torch.tensor(-1.0, **f32))
 
 
 def _set_body(body_pos, idx: int, p):

@@ -15,10 +15,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..char.controller import CharParams, CharState
+from ..char.controller import CharParams, CharState, char_state_init
 from ..device import resolve_device
 from ..physics.narrowphase import StaticWorld
-from ..physics.world import BodyFlags, BodyParams, PhysState, body_flags
+from ..physics.world import (BodyFlags, BodyParams, PhysState, body_flags,
+                             phys_state_init)
 
 
 class EntityParams(NamedTuple):
@@ -114,32 +115,9 @@ def engine_state_init(n_entities: int, n_bodies: int, n_chars: int,
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     bl = dict(dtype=torch.bool, device=device)
-    C = n_chars
-    chars = CharState(
-        velocity=torch.zeros(C, 3, **f32),
-        normal=torch.tensor([0.0, 1.0, 0.0], **f32).repeat(C, 1),
-        state=torch.zeros(C, **i32),
-        airborne=torch.zeros(C, **bl),
-        jump=torch.zeros(C, **bl),
-        moved=torch.zeros(C, **i32),
-        jump_start_cnt=torch.zeros(C, **i32),
-        collision=torch.full((C,), -1, **i32),
-        push_body=torch.full((C,), -1, **i32),
-        history=torch.zeros(C, 8, 3, **f32),
-        hist_head=torch.zeros(C, **i32),
-        hist_wrapped=torch.zeros(C, **bl),
-        dash_time=torch.full((C,), -1.0, **f32),
-    )
-    N = n_bodies
-    phys = PhysState(
-        pos=torch.zeros(N, 3, **f32),
-        vel=torch.zeros(N, 3, **f32),
-        quat=torch.tensor([0.0, 0.0, 0.0, 1.0], **f32).repeat(N, 1),
-        angvel=torch.zeros(N, 3, **f32),
-        time_acc=torch.zeros((), **f32),
-        disable_count=torch.zeros(N, **i32),
-        disabled=torch.zeros(N, **bl),
-    )
+    chars = CharState(*(x.expand((n_chars,) + x.shape).clone()
+                        for x in char_state_init(device)))
+    phys = phys_state_init(n_bodies, device)
     cameras = None
     if n_cameras:
         cameras = CameraState(

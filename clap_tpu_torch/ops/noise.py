@@ -1,7 +1,11 @@
-"""Analytic noise on the device and film-grain blue noise (counterpart of
-the device half of clap_tpu/ops/noise.py; reference: core/noise.{c,h},
-shaders noise.glsl).
+"""Baked and analytic noise and film-grain blue noise (counterpart of
+clap_tpu/ops/noise.py; reference: core/noise.{c,h}, shaders noise.glsl).
 
+- ``hash31`` / ``value_noise3d_periodic`` / ``fbm3_periodic`` /
+  ``noise_grad3d``: the host bake in numpy, copied from the JAX package:
+  the tileable 3-D fBm gradient volume as RGBA8
+  (noise_grad3d_bake_rgba8, noise.c:223-270), equal to the reference's
+  byte for byte.
 - ``noise3d_field``: the normalised gradient of periodic value-noise fBm
   that the reference bakes into a 3-D texture (noise_grad3d_bake_rgba8,
   noise.c:223-270), evaluated per point instead of sampled. Its hash is
@@ -15,8 +19,6 @@ shaders noise.glsl).
   torch cannot reproduce, so the default 64² texture is that draw's
   result, committed in ``clap_tpu_torch/data/jax_tables.npz``
   (``tools/torch_jax_tables.py`` regenerates it).
-
-The host-side bake (``noise_grad3d``) is not ported.
 """
 from __future__ import annotations
 
@@ -45,6 +47,96 @@ def jax_table(name: str) -> np.ndarray:
     return t
 
 
+def _smooth(t):
+    return t * t * (3.0 - 2.0 * t)
+
+
+# ---------------------------------------------------------------------------
+# the host bake (numpy)
+# ---------------------------------------------------------------------------
+
+def hash31(x, y, z, seed):
+    """noise.h:9-17, exact integer replica (uint32 wraparound)."""
+    x = np.asarray(x).astype(np.uint32)
+    y = np.asarray(y).astype(np.uint32)
+    z = np.asarray(z).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = (x * np.uint32(374761393) + y * np.uint32(668265263)
+             + z * np.uint32(362437) + np.uint32(seed) * np.uint32(2246822519))
+        h = (h ^ (h >> np.uint32(13))) * np.uint32(1274126177)
+        h = h ^ (h >> np.uint32(16))
+    return h.astype(np.float64) * (1.0 / 4294967296.0)
+
+
+def value_noise3d_periodic(x, y, z, period: int, seed: int):
+    """noise.c:172-204 vectorized (numpy, host bake)."""
+    xi0 = np.floor(x).astype(np.int64)
+    yi0 = np.floor(y).astype(np.int64)
+    zi0 = np.floor(z).astype(np.int64)
+    xf, yf, zf = x - xi0, y - yi0, z - zi0
+
+    def wrap(i):
+        return (i % period + period) % period
+
+    c = {}
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                c[(dx, dy, dz)] = hash31(wrap(xi0 + dx), wrap(yi0 + dy),
+                                         wrap(zi0 + dz), seed)
+    ux, uy, uz = _smooth(xf), _smooth(yf), _smooth(zf)
+    x00 = c[(0, 0, 0)] * (1 - ux) + c[(1, 0, 0)] * ux
+    x10 = c[(0, 1, 0)] * (1 - ux) + c[(1, 1, 0)] * ux
+    x01 = c[(0, 0, 1)] * (1 - ux) + c[(1, 0, 1)] * ux
+    x11 = c[(0, 1, 1)] * (1 - ux) + c[(1, 1, 1)] * ux
+    y0 = x00 * (1 - uy) + x10 * uy
+    y1 = x01 * (1 - uy) + x11 * uy
+    return y0 * (1 - uz) + y1 * uz
+
+
+def fbm3_periodic(x, y, z, octaves: int, lacunarity: float, gain: float,
+                  period: int, seed: int):
+    """noise.c:206-221."""
+    a, v = 0.5, np.zeros_like(np.asarray(x, np.float64))
+    fx, fy, fz = (np.asarray(t, np.float64) for t in (x, y, z))
+    p = period
+    for i in range(octaves):
+        v = v + value_noise3d_periodic(fx, fy, fz, p, seed + i) * a
+        fx, fy, fz = fx * lacunarity, fy * lacunarity, fz * lacunarity
+        p = int(round(p * lacunarity))
+        a *= gain
+    return v
+
+
+def noise_grad3d(size: int = 32, octaves: int = 4, lacunarity: float = 2.0,
+                 gain: float = 0.5, period_units: float = 8.0,
+                 seed: int = 1337) -> np.ndarray:
+    """(size, size, size, 4) uint8 baked gradient volume
+    (noise_grad3d_bake_rgba8, noise.c:223-270)."""
+    step = period_units / size
+    eps = step
+    zs, ys, xs = np.meshgrid(np.arange(size) * step, np.arange(size) * step,
+                             np.arange(size) * step, indexing="ij")
+    p = int(period_units)
+
+    def f(px, py, pz):
+        return fbm3_periodic(px, py, pz, octaves, lacunarity, gain, p, seed)
+
+    gx = (f(xs + eps, ys, zs) - f(xs - eps, ys, zs)) * (0.5 / eps)
+    gy = (f(xs, ys + eps, zs) - f(xs, ys - eps, zs)) * (0.5 / eps)
+    gz = (f(xs, ys, zs + eps) - f(xs, ys, zs - eps)) * (0.5 / eps)
+    ln = np.sqrt(np.maximum(gx * gx + gy * gy + gz * gz, 1e-30))
+    out = np.zeros((size, size, size, 4), np.uint8)
+    out[..., 0] = np.rint((gx / ln * 0.5 + 0.5) * 255).astype(np.uint8)
+    out[..., 1] = np.rint((gy / ln * 0.5 + 0.5) * 255).astype(np.uint8)
+    out[..., 2] = np.rint((gz / ln * 0.5 + 0.5) * 255).astype(np.uint8)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the device half
+# ---------------------------------------------------------------------------
+
 def _hash31(x, y, z, seed: int):
     """hash31 (noise.h:9-17) of integer tensors: uint32 arithmetic with
     wraparound, in int64 masked to 32 bits after every product and sum.
@@ -58,10 +150,6 @@ def _hash31(x, y, z, seed: int):
     h = (h ^ (h >> 13)) * 1274126177 & m
     h = h ^ (h >> 16)
     return h.to(torch.float32) * (1.0 / 4294967296.0)
-
-
-def _smooth(t):
-    return t * t * (3.0 - 2.0 * t)
 
 
 def _value_noise3d(x, y, z, period: int, seed: int):

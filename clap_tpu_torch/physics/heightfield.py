@@ -154,6 +154,19 @@ def hf_face_plane_patch(hf: Heightfield, patch, gx0, gz0, x, z):
     return normal, h, inside
 
 
+def hf_normal(hf: Heightfield, x, z):
+    """terrain_normal (terrain.c:316-324): the grid normal of the cell
+    under (x, z), clamped to the grid (not interpolated — the reference's
+    gameplay query)."""
+    n = hf.heights.shape[0]
+    square = hf.side / (n - 1)
+    gx = torch.clamp(torch.floor((x - hf.origin[0]) / square).to(torch.int32),
+                     0, n - 1)
+    gz = torch.clamp(torch.floor((z - hf.origin[1]) / square).to(torch.int32),
+                     0, n - 1)
+    return hf.normals[gx.long(), gz.long()]
+
+
 def hf_face_normal(hf: Heightfield, x, z):
     """Exact normal of the triangle under (x, z)."""
     return hf_face_plane(hf, x, z)[0]

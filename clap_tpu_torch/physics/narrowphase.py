@@ -22,6 +22,7 @@ from .heightfield import (CONTACT_PATCH, Heightfield, hf_face_normal,
 from .shapes import capsule_triangle_contact, ray_triangle
 
 INF = float("inf")
+HF_NEIGH = 2  # heightfield cells on each side of the capsule cell
 
 
 class StaticWorld(NamedTuple):
@@ -155,6 +156,23 @@ def capsule_world_contacts(world: StaticWorld, p_bot, p_top, r,
         point=torch.cat([hp, point], dim=-2),
         valid=torch.cat([hv, valid.expand(depth.shape)], dim=-1),
     )
+
+
+def sphere_world_contacts(world: StaticWorld, center, r,
+                          neigh: int = HF_NEIGH) -> Contacts:
+    """Sphere = zero-length capsule. As in the JAX package, ``neigh`` is
+    passed on as capsule_world_contacts's ``n_samples``."""
+    return capsule_world_contacts(world, center, center, r, neigh)
+
+
+def deepest_contact(c: Contacts):
+    """(depth, normal, point, any_valid) of the deepest valid contact of
+    each query (the first slot where several tie)."""
+    d = torch.where(c.valid, c.depth, -INF)
+    i = torch.argmax(d, dim=-1, keepdim=True)
+    i3 = i[..., None].expand(*i.shape, 3)
+    return (c.depth.gather(-1, i)[..., 0], c.normal.gather(-2, i3)[..., 0, :],
+            c.point.gather(-2, i3)[..., 0, :], c.valid.gather(-1, i)[..., 0])
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,14 @@ def _safe(den):
     return torch.where(den == 0, torch.ones_like(den), den)
 
 
+def closest_pt_segment(p, a, b):
+    """Closest point on segment [a, b] to point p."""
+    ab = b - a
+    t = _dot(p - a, ab) / torch.clamp(_dot(ab, ab), min=1e-12)
+    t = torch.clamp(t, 0.0, 1.0)
+    return a + t[..., None] * ab
+
+
 def closest_pt_triangle(p, a, b, c):
     """Closest point on triangle abc to point p (branchless Ericson 5.1.5)."""
     ab = b - a

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import mathx as mx
+from ..device import resolve_device
 from .narrowphase import StaticWorld, capsule_world_contacts
 from .shapes import closest_pt_segment_segment
 
@@ -90,6 +91,36 @@ def capsule_inertia_np(mass, radius, half_len):
         + m_s * (f(2.0 / 5.0) * r * r + L * L / f(4.0)
                  + f(3.0 / 8.0) * L * r)
     return np.stack([ixx, iyy, ixx], axis=-1).astype(f)
+
+
+def capsule_inertia(mass, radius, half_len):
+    """``capsule_inertia_np`` on tensors (the JAX package's
+    capsule_inertia): principal inertia (..., 3) [Ixx, Iyy, Izz] of solid
+    capsules about their centres, y the long axis, in float32."""
+    r = torch.clamp(radius, min=1e-6)
+    L = 2.0 * half_len
+    v_cyl = math.pi * r * r * L
+    v_sph = (4.0 / 3.0) * math.pi * r ** 3
+    rho = mass / torch.clamp(v_cyl + v_sph, min=1e-12)
+    m_c = rho * v_cyl
+    m_s = rho * v_sph
+    iyy = m_c * r * r / 2.0 + m_s * (2.0 / 5.0) * r * r
+    ixx = m_c * (L * L / 12.0 + r * r / 4.0) \
+        + m_s * ((2.0 / 5.0) * r * r + L * L / 4.0 + (3.0 / 8.0) * L * r)
+    return torch.stack([ixx, iyy, ixx], dim=-1)
+
+
+def phys_state_init(n: int, device=None) -> PhysState:
+    """Unbatched initial state of ``n`` bodies on ``device`` (the card
+    unless named): at rest at the origin, identity orientation."""
+    dev = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return PhysState(
+        pos=torch.zeros(n, 3, **f32), vel=torch.zeros(n, 3, **f32),
+        quat=torch.tensor([0.0, 0.0, 0.0, 1.0], **f32).repeat(n, 1),
+        angvel=torch.zeros(n, 3, **f32), time_acc=torch.zeros((), **f32),
+        disable_count=torch.zeros(n, dtype=torch.int32, device=dev),
+        disabled=torch.zeros(n, dtype=torch.bool, device=dev))
 
 
 def body_params_empty(n: int) -> BodyParams:

@@ -24,6 +24,18 @@ def _f32(x, device):
     return mx.const(x, device)
 
 
+def camera_target(char_pos, char_height, head_pos=None, has_head=False):
+    """camera_target (camera.c:174-206): the head joint where the rig has
+    one, else ¾ of the character's height above its origin."""
+    default = char_pos + _f32([0.0, 1.0, 0.0], char_pos.device) \
+        * (char_height * 0.75)
+    if head_pos is None:
+        return default
+    if not isinstance(has_head, torch.Tensor):
+        return head_pos if has_head else default
+    return torch.where(has_head, head_pos, default)
+
+
 def orbit_quat(pitch, yaw):
     """Orbit rotation q = R_y(yaw) · R_x(pitch), (B,) → (B, 4)."""
     dev = pitch.device

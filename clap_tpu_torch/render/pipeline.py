@@ -221,6 +221,16 @@ def shadow_records(opts: RenderOptions, geom: SceneGeometry, casc_views,
     return rec, binned, (s, n_casc * s, th, tw)
 
 
+def shadow_pass(opts: RenderOptions, geom: SceneGeometry, light_view,
+                light_proj):
+    """One cascade per env: depth-only raster → linearized VSM moments
+    (d, d²) (shadow_vsm.frag:8-13). light_view / light_proj (B, 4, 4);
+    returns (B, S, S, 2). ``shadow_pass_all`` with one cascade: one K2
+    launch."""
+    return shadow_pass_all(opts, geom, light_view[:, None],
+                           light_proj[:, None])[:, 0]
+
+
 def shadow_pass_all(opts: RenderOptions, geom: SceneGeometry, casc_views,
                     casc_projs):
     """All cascades of every env in ONE depth raster (one K2 launch) over a

@@ -152,6 +152,16 @@ def bloom_threshold(emission, threshold, intensity):
     return torch.clamp(emission - threshold, min=0.0) * abs(intensity)
 
 
+def bloom_chain(hdr_emission, out_h: int, out_w: int, intensity=1.0,
+                exposure=1.0):
+    """¼-res downsample → v/h Gaussian → upsample recombine
+    (pipeline-builder.c:366-411; upsample.frag math)."""
+    q = downsample2(downsample2(hdr_emission))
+    q = gauss_blur_v(gauss_blur_h(q))
+    up = upsample2(q, out_h, out_w)
+    return (hdr_emission + up * intensity) * exposure
+
+
 def sobel_edges(img_luma):
     """Sobel magnitude on a single-channel image (B, H, W)."""
     h, w = img_luma.shape[1], img_luma.shape[2]
@@ -312,6 +322,20 @@ def ssao_blur(ao):
         for dx in (-1, 0, 1, 2):
             acc = acc + _tap(pd, dy, dx, 2, 2, h, w)
     return acc / 16.0
+
+
+def radial_fog(color, view_dist, fog_color, fog_near, fog_far, noise=None):
+    """Distance fog (combine.frag:35-48): color (B, H, W, 3) towards
+    fog_color (3,) by the clamped ramp of view_dist (B, H, W) from
+    fog_near to fog_far; ``noise`` (B, H, W) tints the fog colour."""
+    span = fog_far - fog_near
+    span = torch.clamp(span, min=1e-6) if isinstance(span, torch.Tensor) \
+        else max(span, 1e-6)
+    f = torch.clamp((view_dist - fog_near) / span, 0.0, 1.0)
+    fc = fog_color
+    if noise is not None:
+        fc = fc * (0.75 + 0.5 * noise[..., None])
+    return color * (1 - f[..., None]) + fc * f[..., None]
 
 
 def contrast(color, amount):

@@ -841,3 +841,130 @@ def test_assert_finite_reads_back_once_on_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert sum("synchroniz" in str(w.message) for w in caught) == 1
+
+
+# ---------------------------------------------------------------------------
+# the UI layer, the debug overlay and the flythrough
+# ---------------------------------------------------------------------------
+
+def _random_lines(dev, n=400, seed=0):
+    """``n`` seeded lines, boxes and crosses around the origin, many
+    crossing one another (pixels hit by several lines), some partly off
+    screen or behind the camera, with unused slots after them."""
+    from clap_tpu_torch.render.debug_draw import (add_aabb, add_cross,
+                                                  add_line, lines_empty)
+
+    g = torch.Generator().manual_seed(seed)
+    dl, idx = lines_empty(n + 64, device=dev), 0
+    while idx < n - 12:
+        a, b = (torch.rand(3, generator=g) * 16 - 8 for _ in range(2))
+        col = tuple(torch.rand(3, generator=g).tolist())
+        kind = idx % 3
+        if kind == 0:
+            dl, idx = add_line(dl, idx, a.to(dev), b.to(dev), col)
+        elif kind == 1:
+            dl, idx = add_aabb(dl, idx, a.to(dev) - 0.5, a.to(dev) + 0.5, col)
+        else:
+            dl, idx = add_cross(dl, idx, a.to(dev), 0.6, col)
+    return dl
+
+
+def _overlay_camera(dev, W=640, H=360):
+    view = mx.mat4_look_at(torch.tensor([3.0, 4.0, 12.0], device=dev),
+                           torch.zeros(3, device=dev),
+                           torch.tensor([0.0, 1.0, 0.0], device=dev))
+    proj = mx.mat4_perspective(math.pi / 3, W / H, 0.1, 100.0, device=dev)
+    return view, proj
+
+
+@pytest.mark.cuda
+def test_draw_lines_deterministic_on_card(cuda_device):
+    """400 overlapping lines over a 640 × 360 frame: two card runs are bit
+    for bit the same and equal to the CPU's."""
+    from clap_tpu_torch.render.debug_draw import draw_lines
+
+    dl = _random_lines(cuda_device)
+    view, proj = _overlay_camera(cuda_device)
+    frame = torch.rand(360, 640, 3, generator=torch.Generator().manual_seed(
+        1)).to(cuda_device)
+    a = draw_lines(frame, dl, view, proj)
+    b = draw_lines(frame, dl, view, proj)
+    ref = draw_lines(frame.cpu(), type(dl)(*(x.cpu() for x in dl)),
+                     view.cpu(), proj.cpu())
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), ref)
+    assert int((a != frame).any(-1).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_ui_compose_and_draw_lines_make_no_host_sync_on_card(cuda_device):
+    """The composite of a menu, an osd and text quads (ui_compose: one
+    upload of the call's bitmaps from pinned memory) and of 400 debug
+    lines makes no synchronizing CUDA call (sync-debug "error")."""
+    from clap_tpu_torch.render.debug_draw import draw_lines
+    from clap_tpu_torch.render.ui import (Menu, MenuItem, UiElement,
+                                          osd, ui_compose, ui_layout)
+
+    menu = Menu([MenuItem("RESUME"), MenuItem("SETTINGS", items=[]),
+                 MenuItem("QUIT")], 640, 360)
+    quads = menu.quads + ui_layout([osd("HELLO 42"), UiElement(
+        x=600, y=340, w=120, h=40, text="CLIPPED", text_scale=1)], 640, 360)
+    dl = _random_lines(cuda_device)
+    view, proj = _overlay_camera(cuda_device)
+    frame = torch.rand(360, 640, 3, device=cuda_device)
+    ui_compose(frame, quads)
+    draw_lines(frame, dl, view, proj)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = draw_lines(ui_compose(frame, quads), dl, view, proj)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = draw_lines(ui_compose(frame.cpu(), quads),
+                     type(dl)(*(x.cpu() for x in dl)), view.cpu(),
+                     proj.cpu())
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_overlay_over_the_engine_frame_on_card(cuda_device):
+    """chip_smoke.py phase 17 (a)'s overlay over 3 frames of the graphics
+    Engine (1 env × 640 × 360): the card's composite equals the CPU
+    composite of the same frame, quads and lines bit for bit, and the UI
+    draws only inside its quads."""
+    import chip_smoke as CS
+    from clap_tpu_torch.render.ui import ui_compose
+
+    _, eng = _demo_engine(cuda_device)
+    ui = CS.overlay_ui(eng)
+    boxes = CS.overlay_boxes(eng)
+    for f in range(3):
+        eng.frame()
+        frame = eng.last_frame
+        quads, dl, view, proj = CS.overlay_layout(ui, eng, f, boxes)
+        out = CS.overlay(frame, quads, dl, view, proj)
+        ref = CS.overlay(frame.cpu(), quads, CS.to_device(dl, "cpu"),
+                         view.cpu(), proj.cpu())
+        assert torch.equal(out.cpu(), ref)
+        changed = (ui_compose(frame, quads) != frame).any(-1)
+        inside = CS.quad_mask(quads, 360, 640, cuda_device)
+        assert bool(changed.any()) and not bool((changed & ~inside).any())
+
+
+@pytest.mark.cuda
+def test_flythrough_frame_matches_cpu_on_card(cuda_device):
+    """The flythrough demo's frame after 20 sim frames at 640 × 360 on the
+    card against the same state rendered on the CPU: PSNR >= 35 dB, as
+    the other frame paths."""
+    import chip_smoke as CS
+    from clap_tpu_torch.demo import flythrough as F
+
+    w = F.build_world(cuda_device)
+    for _ in range(20):
+        w["st"] = F.sim_step(w, w["st"])
+    img = F.render(w, w["st"], 1.0)[0]
+    cw = CS.to_device(w, "cpu")
+    ref = F.render(cw, cw["st"], 1.0)[0]
+    mse = float(((img.cpu() - ref) ** 2).mean())
+    assert 10 * math.log10(1.0 / max(mse, 1e-12)) >= 35.0
+    assert float(img.std()) > 0.01

@@ -49,7 +49,11 @@ CLIPS = ["idle", "motion", "jump", "fall"]
 
 
 @pytest.fixture(scope="module")
-def walk():
+def level():
+    """Both packages' level, wired as the demo wires it, and the JAX
+    package's jitted step, which takes ``next_character`` as an argument
+    as demo/platformer.py:84 does: one XLA compile serves the walk and the
+    demo's run."""
     doc = LEVEL.read_text()
     J = jload(doc, asset_loader=assets57.asset_loader, max_entities=16,
               max_bodies=4)
@@ -63,6 +67,14 @@ def walk():
                    joint_mats=jnp.tile(jnp.eye(4, dtype=jnp.float32),
                                        (2, 3, 1, 1)),
                    sfx_events=jnp.zeros((2, 2), bool))
+    jstep = jax.jit(lambda s, i, nxt: jgame_step(jgw, s, i,
+                                                 next_character=nxt))
+    return J, T, jgs, jstep
+
+
+@pytest.fixture(scope="module")
+def walk(level):
+    J, T, jgs, jstep = level
     sk, lib, acfg = build_demo_rig(device="cpu")
     tgw = GameWorld(scene=T.cfg, game=T.game, anim=acfg, anim_sk=sk,
                     anim_lib=lib,
@@ -73,8 +85,6 @@ def walk():
         anim=anim_instances_init(2, with_sfx=True, device="cpu"),
         joint_mats=torch.eye(4).repeat(2, 3, 1, 1),
         sfx_events=torch.zeros(2, 2, dtype=torch.bool)), 1)
-    jstep = jax.jit(lambda s, i: jgame_step(jgw, s, i,
-                                            next_character=jnp.array(False)))
     jins = jinputs_zero(2)._replace(
         motion=jnp.zeros((2, 2), jnp.float32).at[0, 0].set(1.0))
     tins = inputs_zero(2, device="cpu")
@@ -83,7 +93,7 @@ def walk():
     nxt = torch.zeros(1, dtype=torch.bool)
     out = []
     for _ in range(FRAMES):
-        jgs = jstep(jgs, jins)
+        jgs = jstep(jgs, jins, jnp.array(False))
         tgs = game_step(tgw, tgs, tins, next_character=nxt)
         out.append((jnp_tree(jgs), tgs))
     return J, T, out
@@ -155,3 +165,67 @@ def test_group_0_turns_visible_and_solid(walk):
         jent = jraycast_down(jworld, jnp.array([6.0, 3.0, 0.0]), 10.0)[3]
         assert int(ent[0]) == int(jent) == (2 if k == 1 else -1)
         assert bool(hit[0])
+
+
+def jax_demo_run(J, jgs, jstep, frames, switch_frame):
+    """demo/platformer.py:72-110's loop on the JAX package's step (the
+    walk of the controlled character, Tab on ``switch_frame``, footsteps
+    through the JAX package's sound engine): events, control per frame,
+    the characters' positions per frame, the footstep log and the WAV."""
+    from clap_tpu.utils.sound import SoundEngine, synth_tone
+
+    n_chars = J.cfg.char_params.body.shape[0]
+    K = J.game.switch_entity.shape[0]
+    body = np.asarray(J.cfg.char_params.body)
+    walk = {c: jinputs_zero(n_chars)._replace(
+        motion=jnp.zeros((n_chars, 2), jnp.float32).at[c, 0].set(1.0))
+        for c in range(n_chars)}
+    snd = SoundEngine()
+    foot_ids = (snd.add_sound(synth_tone(95.0, 0.09) * 0.8),
+                snd.add_sound(synth_tone(110.0, 0.09) * 0.8))
+    audio, footsteps, events, control, traj = [], [], [], [], []
+    seen = set()
+    gs = jgs
+    for f in range(frames):
+        ctrl = int(gs.game.control)
+        control.append(ctrl)
+        gs = jstep(gs, walk[ctrl], jnp.array(f == switch_frame))
+        traj.append(np.asarray(gs.engine.phys.pos)[body])
+        ev = np.asarray(gs.sfx_events)
+        for c in range(n_chars):
+            for foot in range(2):
+                if ev[c, foot]:
+                    snd.play(foot_ids[foot])
+                    footsteps.append((f, foot, c))
+        audio.append(snd.mix(snd.rate // 60))
+        if f == switch_frame:
+            events.append((f, f"control -> char {int(gs.game.control)} "
+                           f"(connected "
+                           f"{np.asarray(gs.game.connected).tolist()})"))
+        for k in range(K):
+            if bool(gs.game.switch_on[k]) and k not in seen:
+                seen.add(k)
+                events.append((f, f"switch {k} ON -> platforms visible: "
+                               f"{int(np.asarray(gs.engine.visible).sum())}"))
+    return dict(events=events, control=control, traj=np.stack(traj),
+                footsteps=footsteps, audio=np.concatenate(audio))
+
+
+def test_platformer_demo_run(level):
+    """``python -m clap_tpu_torch.demo.platformer``'s run (build_world,
+    run) over 30 frames with Tab at 20, against the JAX demo's loop on the
+    same jitted step: the same events, control frames and footstep log,
+    positions within 1e-3, the WAV within 1e-6."""
+    from clap_tpu_torch.demo import platformer as P
+
+    J, _, jgs, jstep = level
+    ref = jax_demo_run(J, jgs, jstep, 30, 20)
+    got = P.run(P.build_world("cpu"), 30, 20)
+    assert got["events"] == ref["events"]
+    assert got["control"] == ref["control"] and ref["control"][-1] == 1
+    assert got["footsteps"] == ref["footsteps"] and ref["footsteps"]
+    np.testing.assert_allclose(got["traj"].numpy(), ref["traj"], atol=1e-3,
+                               rtol=0)
+    assert got["audio"].shape == ref["audio"].shape
+    np.testing.assert_allclose(got["audio"], ref["audio"], atol=1e-6,
+                               rtol=0)
