@@ -24,7 +24,10 @@ Phases, one or more lines each:
    rules, rig animation), LBS-skinned ring-column characters
    (build_testbed_char_skin, SKIN=1), cluster-record assembly with the
    skinned range, and the composed frame with the baked static shadow: 1
-   warm-up + 10 timed frames, ms/frame, env-fps, peak memory,
+   warm-up + 10 timed frames, each env on its own inputs (its walk
+   direction, jump frame and camera turn; every env's walker ends at its
+   own place and the first and last env's images differ), ms/frame,
+   env-fps, peak memory,
    clusters/tiles at capacity, the skinned records per env, the pose
    (frame 11 drawn with frame 1's joint matrices moves pixels), each
    kernel timed alone next to its plain version and its bound (what these
@@ -32,7 +35,7 @@ Phases, one or more lines each:
    covered pixel-record pairs, wins; beside them the brute-force tests and
    the kernel's tests after its per-warp reject), the input preparation
    (kernel_inputs) of each, launch counts of the driven run, and an
-   end-to-end check of two envs' images against the plain CPU path.
+   end-to-end check of envs 0, 1, 32 and 63 against the plain CPU path.
 6. CA — K3 (ca2d_run_fused) bit-exact against its plain version ca2d_run
    for 5 rules on every route, each line with its route, cluster size and
    launches per call: 4 shapes (64², 96×160, 37×53, 256² × 1,000),
@@ -53,7 +56,11 @@ Phases, one or more lines each:
    gather (K1 on 19-column barycentric records). As phase 5: 1 warm-up +
    10 timed frames, checks, launches, K1 bit-exact on frame 11's records
    and timed beside its plain version, input preparation and bound, and
-   two envs against the plain CPU path.
+   envs 0, 1, 32 and 63 against the plain CPU path. 8b: the textured
+   frame at 4 envs with normal-map layers (tangent-space TBN) and
+   material fBm on the spheres and terrain: each env against the plain
+   CPU path (PSNR >= 35 dB), and taking the normal layers or the fBm away
+   changes the card's image.
 9. full frame — the JAX bench's ``full_frame`` and ``full_frame_dense``
    (bench.py:168-278) at 1280 × 720: hand-built terrain (and 256 cubes,
    about 117k triangles, raster_cap 4096) with corner-expanded static
@@ -161,6 +168,17 @@ Phases, one or more lines each:
     demo's run (120 frames, Tab at 80) against the port's CPU run, made
     after the card's: the same events, control frames and footstep log,
     positions within 1e-3; ms/frame.
+18. sharding — env-axis sharding (clap_tpu_torch.parallel): (a)
+    ``dryrun_multichip`` (__graft_entry__.py's composed frame, 2 envs per
+    entry) on a mesh of every card and on a 4-entry mesh of cuda:0, the
+    latter bit-exact against the same world unsharded, the mean luma
+    printed; (b) phase 5's flagship from its distinct per-env states at
+    frame 11 for 3 more frames unsharded, sharded over the 4-entry mesh of
+    cuda:0 and (with more than one card) over the cards: state and every
+    env's image bit-exact against the unsharded run, the cross-env mean
+    from per-shard sums within 1e-6 relative, one K1 and one K2 per shard
+    per frame, wall and device busy ms per frame of each run, K1/K2
+    bit-exact on the last shard's records, timed and bounded.
 
 Each new path's kernel launches are counted from 0 over its driven run.
 
@@ -170,11 +188,12 @@ each path's launches and kernel numbers as prefixed fields: ``textured_``,
 ``shading_rate_``, ``game_frame_``, ``particles_``, ``msaa_``,
 ``shadow_msaa_``, ``level_``, ``level_batch_``, ``engine_``,
 ``engine_particles_``, ``overlay_``, ``overlay_particles_``,
-``flythrough_``), the
+``flythrough_``, ``sharded_``), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
 """
+import contextlib
 import json
 import math
 import os
@@ -186,6 +205,11 @@ N_HEADLESS = 4096
 N_SLICE = 64
 RES = 256
 NAN_AT = 59        # phase 16: the frame that steps and renders a NaN state
+TBN_ENVS = 4       # phase 8b's envs
+FEATURE_RMS = 0.02     # phase 8b: a pixel a feature moves by this RMS or more
+SHARD_FRAMES = 3   # phase 18: the flagship's checked frames each way
+SHARD_REPS = 3     # phase 18: its wall-timed and profiled frames each way
+MESH_ENTRIES = 4   # phase 18: the one-card mesh's entries
 
 
 def log(msg):
@@ -214,8 +238,6 @@ def main() -> int:
     from clap_tpu_torch.scene import testbed as tbm
     from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     sync = torch.cuda.synchronize
     laps = {}                        # phase(s) -> host seconds
     clock = [time.perf_counter()]
@@ -226,18 +248,9 @@ def main() -> int:
         clock[0] = now
 
     # ---------------------------------------------------------------- 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0].strip()
+    dev, smi = setup_card()
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, timeout=60)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    require(torch.get_float32_matmul_precision() == "highest",
-            "float32 matmul precision")
-    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul off")
     log(smi)
     log(f"phase 1 device: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, nvcc "
@@ -260,49 +273,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    # ------------------------------------------------- kernel comparison
-    def cmp_tile(k, r):
-        same = k[1] == r[1]
-        hit = same & (r[1] >= 0)
-        err = 0.0
-        for i in (0, 2, 3, 4):
-            if bool(hit.any()):
-                err = max(err, float((k[i] - r[i]).abs()[hit].max()))
-        depth_err = float((k[0] - r[0]).abs()[hit].max()) if bool(
-            hit.any()) else 0.0
-        return float(same.float().mean()), depth_err, err
-
-    def cmp_depth(k, r):
-        fk, fr = torch.isfinite(k), torch.isfinite(r)
-        both = fk & fr
-        diff = torch.where(both, (k - r).abs(), torch.zeros_like(k))
-        agree = (fk == fr) & (diff <= 1e-4)
-        err = float(diff.max()) if bool(both.any()) else 0.0
-        return float(agree.float().mean()), err
-
-    def check_tile(name, args):
-        k = R.raster_tile(*args)
-        sync()
-        r = R.raster_tile_ref(*args)
-        agree, derr, err = cmp_tile(k, r)
-        exact = all(bool(torch.equal(a, b)) for a, b in zip(k, r))
-        log(f"phase 3 parity {name}: K1 tid agreement {agree:.6f}, depth "
-            f"max err {derr:.3g} where ids agree, planes max err {err:.3g}"
-            f", bit-exact {exact}")
-        require(agree >= 0.995 and derr <= 1e-4 and exact,
-                f"K1 bit-exact on {name}")
-        return k, r, err
-
-    def check_depth(name, args):
-        k = R.raster_depth(*args)
-        sync()
-        r = R.raster_depth_ref(*args)
-        agree, err = cmp_depth(k, r)
-        exact = bool(torch.equal(k, r))
-        log(f"phase 3 parity {name}: K2 depth agreement {agree:.6f}, max "
-            f"err {err:.3g}, bit-exact {exact}")
-        require(agree >= 0.995 and exact, f"K2 bit-exact on {name}")
-        return k, r, err
+    check_tile, check_depth = parity_checks(sync)
 
     # ---------------------------------------------------------------- 3a
     t = terrain_init_square_landscape(5, -8.0, 0.0, -8.0, 16.0, 24)
@@ -426,10 +397,16 @@ def main() -> int:
 
     # ------------------------------------- 5c end-to-end vs the CPU path
     psnr = cpu_psnr(w5, d5)
-    log(f"phase 5 end-to-end: envs 0-1 CUDA frame vs plain CPU path PSNR "
-        f"{psnr[0]:.1f} / {psnr[1]:.1f} dB")
+    log(f"phase 5 end-to-end: envs {psnr_envs(N_SLICE)} (distinct states) "
+        f"CUDA frame vs plain CPU path PSNR "
+        f"{' / '.join(f'{p:.1f}' for p in psnr)} dB")
     require(min(psnr) >= 35.0, "end-to-end PSNR >= 35 dB")
 
+    # phase 18 goes on from this world's distinct per-env states, kept on
+    # the host until then so that no later phase's peak memory holds them
+    # (the world itself stays, as it always has)
+    flag = dict(w=w5, gs=to_device(d5["gs"], "cpu"),
+                static=to_device(d5["static"], "cpu"), frame=11)
     del d5, gs, imgs, renderer, st, geom, rec, binned, tile_args
     torch.cuda.empty_cache()
     lap("1-5")
@@ -445,6 +422,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 8
     tex = run_textured_phase(dev, smi, require, sync, check_tile,
                              check_depth)
+    tbn = run_tbn_fbm_check(dev, smi, require, check_tile, check_depth)
+    torch.cuda.empty_cache()
     lap("8")
 
     # ------------------------------------------------------------ 9-12
@@ -475,6 +454,12 @@ def main() -> int:
     # -------------------------------------------------------------- 17
     ovl = run_overlay_phase(dev, smi, require, check_tile, check_depth)
     lap("17")
+
+    # -------------------------------------------------------------- 18
+    shd = run_sharding_phase(dev, smi, require, check_tile, check_depth,
+                             flag)
+    del flag
+    lap("18")
     log(f"phase host seconds: {json.dumps(laps)}, total "
         f"{sum(laps.values()):.0f} s")
 
@@ -528,6 +513,16 @@ def main() -> int:
             f.update(fields("overlay_particles", ovl["launches"][k],
                             ovl["overlay_particles"]))
         f.update(fields("flythrough", ovl["fly_launches"][k], ovl[rep]))
+        # normal maps and material fBm (phase 8b: the textured frame's
+        # barycentric records and its cascade atlas)
+        f.update(fields("tbn", tbn["launches"][k], tbn[rep]))
+        # env-axis sharding: the dryrun's composed frame (the last shard's
+        # records on the one-card mesh; launches of its run there) and the
+        # flagship over that mesh (launches of its 3 frames, the last
+        # shard's records)
+        f.update(fields("dryrun", shd["dryrun_launches"][k],
+                        shd["dryrun_" + rep]))
+        f.update(fields("sharded", shd["launches"][k], shd[rep]))
         return f
 
     # library_ms: no single PyTorch call computes a first-wins tile walk
@@ -566,6 +561,81 @@ def main() -> int:
     return 0
 
 
+def setup_card():
+    """Card 0 made current, float32 products at full precision (TF32 off):
+    (device, the nvidia-smi line of the card's name and power limit)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0].strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    require(torch.get_float32_matmul_precision() == "highest",
+            "float32 matmul precision")
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul off")
+    return dev, smi
+
+
+def parity_checks(sync):
+    """(check_tile, check_depth): each runs its kernel (K1 ``raster_tile``,
+    K2 ``raster_depth``) and its plain version on one argument tuple,
+    logs the agreement and requires bit-exact results; returns (kernel
+    out, plain out, max abs err). ``sync`` waits for the device."""
+    import torch
+
+    from clap_tpu_torch.render import raster as R
+
+    def cmp_tile(k, r):
+        same = k[1] == r[1]
+        hit = same & (r[1] >= 0)
+        err = 0.0
+        for i in (0, 2, 3, 4):
+            if bool(hit.any()):
+                err = max(err, float((k[i] - r[i]).abs()[hit].max()))
+        depth_err = float((k[0] - r[0]).abs()[hit].max()) if bool(
+            hit.any()) else 0.0
+        return float(same.float().mean()), depth_err, err
+
+    def cmp_depth(k, r):
+        fk, fr = torch.isfinite(k), torch.isfinite(r)
+        both = fk & fr
+        diff = torch.where(both, (k - r).abs(), torch.zeros_like(k))
+        agree = (fk == fr) & (diff <= 1e-4)
+        err = float(diff.max()) if bool(both.any()) else 0.0
+        return float(agree.float().mean()), err
+
+    def check_tile(name, args):
+        k = R.raster_tile(*args)
+        sync()
+        r = R.raster_tile_ref(*args)
+        agree, derr, err = cmp_tile(k, r)
+        exact = all(bool(torch.equal(a, b)) for a, b in zip(k, r))
+        log(f"phase 3 parity {name}: K1 tid agreement {agree:.6f}, depth "
+            f"max err {derr:.3g} where ids agree, planes max err {err:.3g}"
+            f", bit-exact {exact}")
+        require(agree >= 0.995 and derr <= 1e-4 and exact,
+                f"K1 bit-exact on {name}")
+        return k, r, err
+
+    def check_depth(name, args):
+        k = R.raster_depth(*args)
+        sync()
+        r = R.raster_depth_ref(*args)
+        agree, err = cmp_depth(k, r)
+        exact = bool(torch.equal(k, r))
+        log(f"phase 3 parity {name}: K2 depth agreement {agree:.6f}, max "
+            f"err {err:.3g}, bit-exact {exact}")
+        require(agree >= 0.995 and exact, f"K2 bit-exact on {name}")
+        return k, r, err
+
+    return check_tile, check_depth
+
+
 def time_ms(fn, args, reps):
     """Device ms per call of ``fn(*args)``, CUDA events around ``reps``
     calls. A spin on the stream holds the start event until every call is
@@ -593,24 +663,25 @@ def time_ms(fn, args, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def build_slice(dev, n_envs=N_SLICE, textured=False):
+def build_slice(dev, n_envs=N_SLICE, textured=False, fbm=False):
     """The slice's world on ``dev``: the composed testbed of bench.py:544-625
     (2 chars, 4 terrain chunks, 96 entities, record_compact 8192, raster_cap
     2048, one directional light) with skinned characters (bench.py:565-588)
     and the game wiring of bench.py:546-559 (the terrain a permanent switch,
     the demo rig on both characters), ``n_envs`` envs at their first state,
-    moving +x. ``textured``: the textured models and textures of the
-    ``step_and_render_textured`` config (bench.py:566-575); kernel_attrs
-    holds where the tables allow it, as bench.py:620-621 sets it. Returns a
-    dict: tb, ent, rt, cs, textures, lights, opts, gw, gs, ins."""
+    each with its own inputs (``slice_inputs``). ``textured``: the textured
+    models and textures of the ``step_and_render_textured`` config
+    (bench.py:566-575); ``fbm``: material fBm (tests/test_torch_texture.py's
+    parameters) on the sphere and terrain models; kernel_attrs holds where the
+    tables allow it, as bench.py:620-621 sets it. Returns a dict: tb, ent,
+    rt, cs, textures, lights, opts, gw, gs, ins_at (frame -> Inputs), ins
+    (frame 0's)."""
     import torch
 
     from clap_tpu_torch.anim.system import anim_instances_init
-    from clap_tpu_torch.bridge import tree_map
     from clap_tpu_torch.engine.game import GameSessionState, GameWorld
     from clap_tpu_torch.engine.gamelogic import (game_config_empty,
                                                  game_state_init)
-    from clap_tpu_torch.engine.step import inputs_zero
     from clap_tpu_torch.render.lights import lights_empty
     from clap_tpu_torch.render.pipeline import RenderOptions
     from clap_tpu_torch.render.scenerender import (build_render_tables,
@@ -624,6 +695,9 @@ def build_slice(dev, n_envs=N_SLICE, textured=False):
                            device=dev)
     ent = tb.cfg.entities
     models = tbm.testbed_models(tb, skinned_chars=True, textured=textured)
+    if fbm:       # the spheres and the terrain chunks (always in view)
+        models = [m._replace(mat_fbm=(0.5, 2.0, 0.2, 0.9, 0.0, 0.6))
+                  if i == 2 or i >= 4 else m for i, m in enumerate(models)]
     rt = build_render_tables(
         models, ent.model_id, ent.active,
         entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
@@ -650,11 +724,39 @@ def build_slice(dev, n_envs=N_SLICE, textured=False):
         engine=tb.state0, game=game_state_init(1, 2, device=dev),
         anim=anim_instances_init(2, device=dev),
         joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), n_envs)
-    ins = tree_map(lambda x: x.expand(n_envs, *x.shape).clone(),
-                   inputs_zero(2, device=dev))
-    ins.motion[:, 0, 0] = 1.0
+    ins_at = slice_inputs(n_envs, dev)
     return dict(tb=tb, ent=ent, rt=rt, cs=cs, textures=textures,
-                lights=lights, opts=opts, gw=gw, gs=gs, ins=ins)
+                lights=lights, opts=opts, gw=gw, gs=gs, ins_at=ins_at,
+                ins=ins_at(0))
+
+
+def slice_inputs(n_envs, dev):
+    """Each env its own inputs, as tests/test_engine.py:46-60 walks its
+    envs in different directions: env e's first character walks along
+    angle 2 pi e / n_envs and jumps at frame 2 + e % 8, and its camera
+    turns at its own yaw rate (-0.03 to 0.03 rad a frame over the envs);
+    the second character stands. Returns ``ins_at(frame)`` -> Inputs
+    (B, ...): the tensors are made once on ``dev``, and a frame's jump is
+    one comparison on the card."""
+    import torch
+
+    from clap_tpu_torch.engine.step import Inputs
+
+    e = torch.arange(n_envs, device=dev)
+    ang = e.float() * (2 * math.pi / n_envs)
+    motion = torch.zeros((n_envs, 2, 2), device=dev)
+    motion[:, 0] = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    cam = torch.zeros((n_envs, 3), device=dev)
+    cam[:, 1] = 0.03 * (2.0 * e.float() / max(n_envs - 1, 1) - 1.0)
+    jump_at = (2 + e % 8)[:, None]
+    first = torch.arange(2, device=dev)[None] == 0
+    dash = torch.zeros((n_envs, 2), dtype=torch.bool, device=dev)
+
+    def ins_at(frame):
+        return Inputs(motion=motion, jump=(jump_at == frame) & first,
+                      cam_delta=cam, dash=dash)
+
+    return ins_at
 
 
 def sun_lights(dev, n=1, color=(1.0, 0.95, 0.9)):
@@ -952,16 +1054,18 @@ def make_renderer(w, static, to=None):
 def drive_frames(w, sync, require, frames=10):
     """The driven run of a ``build_slice`` world: the launch counts start
     at 0, the static shadow bakes, then 1 warm-up and ``frames`` timed
-    frames of step_and_render. Returns a dict: renderer, static, gs, imgs,
-    st, st1 / jm1 (state and joint matrices after frame 1), launches, dt
+    frames of step_and_render, each env on its own inputs (frame k's call
+    takes ``ins_at(k)``). Returns a dict: renderer, static, gs, imgs, st,
+    st1 / jm1 (state and joint matrices after frame 1), launches, dt
     (s/frame), warm (s), peak (bytes), summary (a line of checks)."""
     import torch
 
     from clap_tpu_torch.engine.frame import step_and_render
     from clap_tpu_torch.render.scenerender import bake_static_shadow
 
-    gw, gs, ins = w["gw"], w["gs"], w["ins"]
+    gw, gs, ins_at = w["gw"], w["gs"], w["ins_at"]
     n = gs.engine.frame.shape[0]
+    ins = [ins_at(k) for k in range(frames + 1)]
     frame0 = gs.engine.frame.clone()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -970,13 +1074,13 @@ def drive_frames(w, sync, require, frames=10):
                                 w["lights"].direction[0], shadow_size=1024,
                                 far=200.0)
     renderer = make_renderer(w, static)
-    gs, imgs = step_and_render(gw, renderer, gs, ins)
+    gs, imgs = step_and_render(gw, renderer, gs, ins[0])
     sync()
     warm = time.perf_counter() - t0
     st1, jm1 = gs.engine, gs.joint_mats.clone()
     t0 = time.perf_counter()
-    for _ in range(frames):
-        gs, imgs = step_and_render(gw, renderer, gs, ins)
+    for k in range(1, frames + 1):
+        gs, imgs = step_and_render(gw, renderer, gs, ins[k])
     sync()
     dt = (time.perf_counter() - t0) / frames
     launches = read_launches()
@@ -996,6 +1100,13 @@ def drive_frames(w, sync, require, frames=10):
             "per-env mean luma in (0.02, 0.98)")
     require(all(v > 0 for v in launches.values()),
             f"every kernel launched on the path: {launches}")
+    # distinct envs: every env's walker stands somewhere else, and the
+    # first and last env's images differ
+    walker = st.phys.pos[:, int(gw.scene.char_params.body[0])]
+    n_at = torch.unique(walker, dim=0).shape[0]
+    require(n_at == n, f"every env's walker at its own place ({n_at}/{n})")
+    require(n == 1 or not torch.equal(imgs[0], imgs[-1]),
+            "env 0's image and the last env's differ")
     summary = (f"image std min {float(std.min()):.4f}, mean luma "
                f"{float(luma.min()):.4f}..{float(luma.max()):.4f}, switch "
                f"on in {int(gs.game.switch_on[:, 0].sum())}/{n} envs, clips "
@@ -1005,16 +1116,22 @@ def drive_frames(w, sync, require, frames=10):
                 peak=peak, summary=summary)
 
 
+def psnr_envs(n):
+    """The envs a frame is held against the CPU path at: 0, 1, n/2, n-1."""
+    return sorted({0, min(1, n - 1), n // 2, n - 1})
+
+
 def cpu_psnr(w, d):
-    """PSNR of envs 0-1 of the driven run's last frame against the same
-    state rendered by the plain CPU path (a CPU copy of the renderer)."""
+    """PSNR of envs ``psnr_envs`` of the driven run's last frame against
+    the same states rendered by the plain CPU path (a CPU copy of the
+    renderer)."""
     from clap_tpu_torch.bridge import tree_map
 
+    envs = psnr_envs(d["imgs"].shape[0])
     cpu = make_renderer(w, tuple(x.cpu() for x in d["static"]), to="cpu")
-    ref = cpu(tree_map(lambda x: x[:2].cpu(), d["st"]),
-              d["gs"].joint_mats[:2].cpu())
-    mse = ((d["imgs"][:2].cpu() - ref) ** 2).reshape(2, -1).mean(1)
-    return [10 * math.log10(1.0 / max(float(m), 1e-12)) for m in mse]
+    ref = cpu(tree_map(lambda x: x[envs].cpu(), d["st"]),
+              d["gs"].joint_mats[envs].cpu())
+    return env_psnr(d["imgs"][envs].cpu(), ref)
 
 
 def frame_records(renderer, st, joint_mats=None, opts=None):
@@ -1101,14 +1218,165 @@ def run_textured_phase(dev, smi, require, sync, check_tile, check_depth):
         f"preparation (kernel_inputs) {prep:.3f} ms ({smi})")
     log_bounds("phase 8", (("K1", bound),))
     psnr = cpu_psnr(w, d)
-    log(f"phase 8 end-to-end: envs 0-1 CUDA frame vs plain CPU path PSNR "
-        f"{psnr[0]:.1f} / {psnr[1]:.1f} dB")
+    log(f"phase 8 end-to-end: envs {psnr_envs(N_SLICE)} (distinct states) "
+        f"CUDA frame vs plain CPU path PSNR "
+        f"{' / '.join(f'{p:.1f}' for p in psnr)} dB")
     require(min(psnr) >= 35.0, "textured end-to-end PSNR >= 35 dB")
     out = dict(launches=d["launches"], max_abs_err=err, ms=ms,
                plain_ms=plain, bound=bound)
     del d, renderer, gs, geom, rec, binned, args
     torch.cuda.empty_cache()
     return out
+
+
+def tbn_fbm_frames(dev, n_envs=TBN_ENVS):
+    """The textured frame with normal maps and material fBm: the textured
+    slice (``build_slice(textured=True, fbm=True)``, each env on its own
+    inputs) after 3 frames of ``game_step``, its textures given normal
+    layers (tangent space, [0, 1], made from seed 15 as
+    tests/test_torch_texture.py makes them; the characters and trees carry
+    tangents), rendered through the gather path (K1 on barycentric
+    records) at RES² on ``dev`` and on the CPU, each with both features,
+    without the normal layers and with the tables' fBm amplitude 0.
+    Returns a dict: img / no_normals / no_fbm (``dev``), cpu /
+    cpu_no_normals / cpu_no_fbm (the same states on the CPU), launches (of
+    the first render), renderer, st, jm (the rendered state and joint
+    matrices), geom (its geometry)."""
+    import numpy as np
+    import torch
+
+    from clap_tpu_torch.engine.game import game_step
+    from clap_tpu_torch.render.scenerender import bake_static_shadow
+
+    w = build_slice(dev, n_envs, textured=True, fbm=True)
+    L, S = w["textures"].diffuse.shape[:2]
+    rng = np.random.default_rng(15)
+    nm = np.clip(np.array([0.5, 0.5, 1.0])
+                 + rng.uniform(-0.3, 0.3, (L, S, S, 3)), 0.0, 1.0)
+    plain_tex = w["textures"]
+    w["textures"] = plain_tex._replace(
+        normal=torch.as_tensor(nm.astype(np.float32), device=dev))
+    static = bake_static_shadow(w["rt"], w["tb"].state0.mx,
+                                w["lights"].direction[0], shadow_size=1024,
+                                far=200.0)
+    gs = w["gs"]
+    for k in range(3):
+        gs = game_step(w["gw"], gs, w["ins_at"](k))
+    st, jm = gs.engine, gs.joint_mats
+    renderer = make_renderer(w, static)
+    reset_launches()
+    img = renderer(st, jm)
+    launches = read_launches()
+    geom = renderer.geometry(st, None, jm)
+    worlds = {"": w, "no_normals": dict(w, textures=plain_tex),
+              "no_fbm": dict(w, rt=w["rt"]._replace(
+                  mat_fbm=torch.zeros_like(w["rt"].mat_fbm)))}
+    cpu_static = to_device(static, "cpu")
+    out = dict(img=img, launches=launches, renderer=renderer, st=st, jm=jm,
+               geom=geom)
+    for name, wv in worlds.items():
+        if name:
+            out[name] = make_renderer(wv, static)(st, jm)
+        out["cpu_" + name if name else "cpu"] = make_renderer(
+            wv, cpu_static, to="cpu")(to_device(st, "cpu"), jm.cpu())
+    return out
+
+
+def env_psnr(a, b, mask=None):
+    """PSNR in dB of each env of images ``a`` against ``b`` (B, H, W, 3),
+    over the pixels of ``mask`` (B, H, W) where given (nan where an env has
+    none)."""
+    import torch
+
+    se = ((a.double() - b.double()) ** 2).mean(-1)
+    if mask is None:
+        mask = torch.ones_like(se, dtype=torch.bool)
+    n = mask.reshape(mask.shape[0], -1).sum(1)
+    mse = torch.where(mask, se, 0.0).reshape(se.shape[0], -1).sum(1) / n
+    return [10 * math.log10(1.0 / max(float(m), 1e-12)) if k else math.nan
+            for m, k in zip(mse, n)]
+
+
+def run_tbn_fbm_check(dev, smi, require, check_tile, check_depth):
+    """Phase 8b: ``tbn_fbm_frames`` on the card. The tables carry tangents
+    and fBm and the render launches K1 and K2. Each env against the CPU
+    path (PSNR >= 35 dB), with both features, with the normal layers only
+    and with the fBm only. Each feature is held where it acts: on the
+    pixels it moves by ``FEATURE_RMS`` RMS or more in the CPU's image, the
+    card's frame is >= 35 dB from the CPU's and the card's frame without
+    that feature is < 35 dB from it (the bar fails a card that drops the
+    feature). The material fBm of the tables' vertices on the card against
+    the CPU shows what the fBm's sin hash gives way to. K1 and K2 on the
+    frame's records, bit-exact, timed and bounded. Returns a dict:
+    launches, k1, k2 (``kernel_report``s)."""
+    import torch
+
+    from clap_tpu_torch.render.shade import material_fbm
+
+    t = tbn_fbm_frames(dev)
+    g = t["geom"]
+    require(g.tangent is not None and g.mat_fbm is not None
+            and bool((g.mat_fbm[:, 0] > 0).any()),
+            "the TBN/fBm frame's geometry carries tangents and fBm")
+    require(t["launches"] == {"raster_tile": 1, "raster_depth": 1},
+            f"the TBN/fBm render launched K1 and K2 once: {t['launches']}")
+    img, cpu = t["img"].cpu(), t["cpu"]
+    require(bool(torch.isfinite(img).all()), "the TBN/fBm frame is finite")
+
+    def line(vals):
+        return " / ".join(f"{p:.1f}" for p in vals)
+
+    both = env_psnr(img, cpu)
+    normals_only = env_psnr(t["no_fbm"].cpu(), t["cpu_no_fbm"])
+    fbm_only = env_psnr(t["no_normals"].cpu(), t["cpu_no_normals"])
+    log(f"phase 8b TBN normal maps + material fBm ({TBN_ENVS} envs x "
+        f"{img.shape[2]}x{img.shape[1]}, gather path, launches "
+        f"{t['launches']}): CUDA vs plain CPU path PSNR {line(both)} dB; "
+        f"normal layers only (fBm amplitude 0 on both) "
+        f"{line(normals_only)} dB; fBm only (no normal layers on both) "
+        f"{line(fbm_only)} dB ({smi})")
+    require(min(both) >= 35.0, "TBN/fBm frame vs CPU PSNR >= 35 dB")
+    require(min(normals_only + fbm_only) >= 35.0,
+            "each feature alone vs CPU PSNR >= 35 dB")
+    for feat, off in (("normal layers", "no_normals"), ("fBm", "no_fbm")):
+        moved = ((cpu - t["cpu_" + off]) ** 2).mean(-1).sqrt() >= FEATURE_RMS
+        on = env_psnr(img, cpu, moved)
+        dropped = env_psnr(t[off].cpu(), cpu, moved)
+        whole = env_psnr(t[off].cpu(), cpu)
+        per_env = moved.reshape(TBN_ENVS, -1).sum(1).tolist()
+        log(f"phase 8b {feat}: {per_env} pixels an env moved by >= "
+            f"{FEATURE_RMS} RMS in the CPU frame; there the card's frame "
+            f"{line(on)} dB and the card's frame without the {feat} "
+            f"{line(dropped)} dB against the CPU's (whole frame without "
+            f"them {line(whole)} dB)")
+        require(min(per_env) * 1000 >= RES * RES,
+                f"the {feat} move >= 0.1 % of the pixels of every env")
+        require(min(on) >= 35.0, f"where the {feat} act, card vs CPU >= 35 "
+                "dB")
+        require(max(dropped) < 35.0, f"where the {feat} act, the card's "
+                "frame without them < 35 dB")
+    # the fBm of the tables' own vertices, card against CPU
+    rt = t["renderer"].rt
+    use = rt.mat_fbm[:, 0] > 0
+    p, fp = rt.verts[use], rt.mat_fbm[use]
+    fk = material_fbm(p, fp[:, 0], 4, fp[:, 1:2]).cpu()
+    fc = material_fbm(p.cpu(), fp[:, 0].cpu(), 4, fp[:, 1:2].cpu())
+    d = (fk - fc).abs()
+    log(f"phase 8b material fBm at the tables' {int(use.sum())} fBm "
+        f"vertices, card vs CPU: max abs diff {float(d.max()):.3g}, "
+        f"{int((d > 1e-3).sum())} over 1e-3, {int((d > 0.05).sum())} over "
+        f"0.05 (the sin hash times 43758.5453 turns an ulp of sin into "
+        f"~3e-3 and a fract wrap into ~1)")
+    r = t["renderer"]
+    _, rec, binned, srec, sbin, dims = frame_records(r, t["st"], t["jm"])
+    res = dict(launches=t["launches"])
+    res["k1"] = kernel_report("phase 8b", f"TBN/fBm frame {TBN_ENVS} envs "
+                              "barycentric records", check_tile, rec, binned,
+                              (RES, RES), False, smi)
+    res["k2"] = kernel_report("phase 8b", f"TBN/fBm frame cascade atlas "
+                              f"{dims[1]}x{dims[0]}", check_depth, srec, sbin,
+                              dims, True, smi)
+    return res
 
 
 def driven_run(reps, unit="frames"):
@@ -3395,6 +3663,187 @@ def run_skinning_phase(dev, smi, require, n_inst=1024, n_joints=64,
         f"{pick.tolist()} vs the CPU path max abs err {err:.3g} ({smi})")
     require(bool(torch.isfinite(out).all()), "skinned verts finite")
     require(err <= 1e-4, "skinning within 1e-4 of the CPU path")
+
+
+def run_sharding_phase(dev, smi, require, check_tile, check_depth, flag):
+    """Phase 18: env-axis sharding on the card (clap_tpu_torch.parallel).
+    (a) ``dryrun_multichip`` on a mesh of every card present and on a
+    ``MESH_ENTRIES``-entry mesh of ``dev``, each against the same world
+    stepped unsharded (state and frames bit-exact), with K1/K2 bit-exact on
+    the last shard's records (and, over several cards, on the last card).
+    (b) phase 5's world (``build_slice``) from ``flag``'s distinct per-env
+    states (dict gs, static: on the host, frame) for ``SHARD_FRAMES`` frames
+    (inputs ``ins_at(frame + j)``) unsharded, sharded over the
+    ``MESH_ENTRIES``-entry mesh of ``dev``, and where there is more than one
+    card over the cards: integer, boolean and float state and every env's
+    image equal to the unsharded run's bit for bit, the cross-env mean
+    (``env_mean``, from per-shard sums) within 1e-6 relative of the
+    unsharded ``mean()``, one K1 and one K2 launch per shard per frame;
+    wall and device busy ms per frame of each run (``frame_times``,
+    ``SHARD_REPS`` each; over the cards the busy ms sum every card's),
+    K1/K2 bit-exact on the last shard's records, timed and bounded.
+    Returns a dict: launches (the one-card mesh run's), k1, k2 (the last
+    shard's kernel reports), dryrun_launches (of the dryrun on the
+    one-card mesh), dryrun_k1, dryrun_k2."""
+    import torch
+
+    from clap_tpu_torch.bridge import tree_leaves
+    from clap_tpu_torch.engine.frame import step_and_render
+    from clap_tpu_torch.parallel.multichip import (dryrun_multichip,
+                                                   multichip_world)
+    from clap_tpu_torch.parallel.sharding import (env_mean, env_mesh,
+                                                  gather_envs, map_shards,
+                                                  replicate, shard_envs)
+    from clap_tpu_torch.render import raster as R
+
+    cuda = torch.device(dev).type == "cuda"
+    n_cards = torch.cuda.device_count() if cuda else 0
+    one = env_mesh(MESH_ENTRIES, devices=[dev] * MESH_ENTRIES)
+    every = env_mesh() if cuda else None
+    cards = every if n_cards > 1 else None
+
+    def sync_all():
+        if cuda:
+            for i in range(n_cards):
+                torch.cuda.synchronize(i)
+
+    def same_tree(a, b):
+        return all(torch.equal(x, y.to(x.device))
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    # ------------------------------------------------------------ (a)
+    res = {}
+    for mesh in ([every] if every else []) + [one]:
+        reset_launches()
+        gs_d, mean, frames_ = dryrun_multichip(mesh.size,
+                                               devices=mesh.devices)
+        sync_all()
+        launched = read_launches()
+        w = multichip_world(frames_.shape[0], dev)
+        gs_w, whole = step_and_render(w["gw"], w["renderer"], w["gs"],
+                                      w["ins"])
+        exact = bool(torch.equal(whole, frames_.to(dev))) and \
+            same_tree(gs_w, gs_d)
+        log(f"phase 18 dryrun_multichip: mesh {[str(d) for d in mesh.devices]}"
+            f" ({mesh.size} entries, {frames_.shape[0]} envs x "
+            f"{frames_.shape[2]}x{frames_.shape[1]}), mean luma "
+            f"{float(mean):.6f}, launches {launched}, state and frames "
+            f"bit-equal to the unsharded world {exact}")
+        require(launched == {"raster_tile": mesh.size,
+                             "raster_depth": mesh.size},
+                f"the dryrun: one K1 and one K2 per shard ({launched})")
+        require(exact, "dryrun_multichip's sharded state and frames equal "
+                "the same world's unsharded ones bit for bit")
+        if mesh is every and not cards:
+            continue              # one card: the one-card mesh's shard below
+        d = mesh.devices[-1]
+        r = replicate(w["renderer"], mesh)[-1]
+        last = shard_envs(gs_w, mesh)[-1]
+        with torch.cuda.device(d) if cuda else contextlib.nullcontext():
+            _, rec, binned, srec, sbin, dims = frame_records(
+                r, last.engine, last.joint_mats)
+            if mesh is cards:     # the kernels on the last card
+                check_tile(f"dryrun last shard on {d}", R.kernel_inputs(
+                    rec, binned, r.opts.width, r.opts.height))
+                check_depth(f"dryrun last shard atlas on {d}",
+                            R.kernel_inputs(srec, sbin, *dims,
+                                            depth_only=True))
+                continue
+        res["dryrun_launches"] = launched
+        name = f"dryrun last shard ({frames_.shape[0] // mesh.size} envs)"
+        kind = "extras" if r.cluster_records else "barycentric"
+        res["dryrun_k1"] = kernel_report(
+            "phase 18", f"{name} {kind} records", check_tile, rec, binned,
+            (r.opts.width, r.opts.height), False, smi)
+        res["dryrun_k2"] = kernel_report(
+            "phase 18", f"{name} cascade atlas {dims[1]}x{dims[0]}",
+            check_depth, srec, sbin, dims, True, smi)
+
+    # ------------------------------------------------------------ (b)
+    fw, k0 = flag["w"], flag["frame"]
+    gs0 = to_device(flag["gs"], dev)
+    gw, ins_at = fw["gw"], fw["ins_at"]
+    renderer = make_renderer(fw, to_device(flag["static"], dev))
+    n = gs0.engine.frame.shape[0]
+    ins = [ins_at(k0 + j) for j in range(SHARD_FRAMES)]
+
+    def sharded(mesh, gss, frame_ins):
+        gws, rs = replicate(gw, mesh), replicate(renderer, mesh)
+        imgs, means = [], []
+        for i in frame_ins:
+            out = map_shards(step_and_render, mesh, gws, rs, gss,
+                             shard_envs(i, mesh))
+            gss = [g for g, _ in out]
+            imgs.append(gather_envs([im for _, im in out]))
+            means.append(env_mean([im for _, im in out]))
+        sync_all()
+        return gather_envs(gss), imgs, means
+
+    reset_launches()
+    gs_u, imgs_u = gs0, []
+    for i in ins:
+        gs_u, img = step_and_render(gw, renderer, gs_u, i)
+        imgs_u.append(img)
+    sync_all()
+    lu = read_launches()
+    require(lu == {"raster_tile": SHARD_FRAMES, "raster_depth": SHARD_FRAMES},
+            f"the unsharded run: one K1 and one K2 a frame ({lu})")
+    runs = [("mesh " + "+".join(str(d) for d in one.devices), one)]
+    if cards:
+        runs.append((f"{n_cards} cards", cards))
+    else:
+        log(f"phase 18 over the cards: {n_cards} card here, the cards' run "
+            "is the unsharded one")
+    wall_u, busy_u = frame_times(
+        lambda: step_and_render(gw, renderer, gs0, ins[0]), SHARD_REPS)
+    log(f"phase 18 flagship unsharded: {n} envs x {RES}^2 from distinct "
+        f"per-env states (frame {k0}), {spread(wall_u)} wall / "
+        f"{spread(busy_u)} device busy per frame; launches over "
+        f"{SHARD_FRAMES} frames {lu} ({smi})")
+    mean_u = [float(im.mean()) for im in imgs_u]
+    for name, mesh in runs:
+        reset_launches()
+        gs_s, imgs_s, means_s = sharded(mesh, shard_envs(gs0, mesh), ins)
+        ls = read_launches()
+        m = mesh.size
+        require(ls == {"raster_tile": m * SHARD_FRAMES,
+                       "raster_depth": m * SHARD_FRAMES},
+                f"{name}: one K1 and one K2 per shard per frame ({ls})")
+        same = [torch.equal(a, b.to(a.device)) for a, b in
+                zip(tree_leaves(gs_u), tree_leaves(gs_s))]
+        diff = max(float((a.double() - b.to(a.device).double()).abs().max())
+                   for a, b in zip(tree_leaves(gs_u), tree_leaves(gs_s))
+                   if a.is_floating_point() and a.numel())
+        img_same = all(torch.equal(a, b.to(a.device))
+                       for a, b in zip(imgs_u, imgs_s))
+        rel = max(abs(float(b) - a) / abs(a) for a, b in zip(mean_u, means_s))
+        first = shard_envs(gs0, mesh)
+        wall_s, busy_s = frame_times(
+            lambda: sharded(mesh, first, ins[:1]), SHARD_REPS)
+        log(f"phase 18 flagship sharded over {name} ({m} shards of {n // m} "
+            f"envs): {spread(wall_s)} wall / {spread(busy_s)} device busy "
+            f"per frame; launches over {SHARD_FRAMES} frames {ls}; state "
+            f"leaves bit-equal {sum(same)}/{len(same)} (float max abs diff "
+            f"{diff:.3g}), every env's image bit-equal {img_same}, cross-env "
+            f"mean rel diff {rel:.3g} ({smi})")
+        require(all(same), f"{name}: the sharded state equals the "
+                "unsharded bit for bit")
+        require(img_same, f"{name}: every env's image equals the unsharded "
+                "bit for bit")
+        require(rel <= 1e-6, f"{name}: cross-env mean within 1e-6 relative")
+        res.setdefault("launches", ls)
+        del gs_s, imgs_s, first
+    # K1/K2 on the last shard's inputs (frame k0 + SHARD_FRAMES' state)
+    last = shard_envs(gs_u, one)[-1]
+    _, rec, binned, srec, sbin, dims = frame_records(
+        renderer, last.engine, last.joint_mats)
+    res["k1"] = kernel_report("phase 18", f"sharded flagship last shard "
+                              f"({n // one.size} envs) extras records",
+                              check_tile, rec, binned, (RES, RES), False, smi)
+    res["k2"] = kernel_report("phase 18", f"sharded flagship last shard "
+                              f"cascade atlas {dims[1]}x{dims[0]}",
+                              check_depth, srec, sbin, dims, True, smi)
+    return res
 
 
 if __name__ == "__main__":

@@ -4,10 +4,13 @@ SURVEY §5.4: the reference has none).
 A state (EngineState, GameSessionState or any NamedTuple/tuple tree of
 tensors) is one tree, so a full-state snapshot is a single save: its
 tensor leaves, in order, as the arrays of one numpy ``.npz``. The JAX
-package saves through orbax where it is installed; the port has only the
-``.npz`` route.
+package saves through orbax where it is installed, and then writes a
+directory even for a path ending in ``.npz``; the port reads only the
+``.npz`` route, which the JAX package takes where orbax is absent.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -26,7 +29,15 @@ def save_checkpoint(path: str, state) -> str:
 def load_checkpoint(path: str, template):
     """Restore into the structure of ``template``: each tensor leaf takes
     the template leaf's dtype and device; None leaves and host values
-    (flags, dataclasses) come from the template."""
+    (flags, dataclasses) come from the template. A directory is the JAX
+    package's orbax format, which the port cannot read: ValueError."""
+    for d in (path, path + ".npz"):
+        if os.path.isdir(d):
+            raise ValueError(
+                f"{d} is a directory: the JAX package's orbax checkpoint "
+                "format, which the port cannot read (it has no orbax). "
+                "Save from the JAX package where orbax is not installed: "
+                "its save_checkpoint then writes the .npz the port loads.")
     p = path if path.endswith(".npz") else path + ".npz"
     with np.load(p) as data:
         arrays = [data[f"arr_{i}"] for i in range(len(data.files))]

@@ -968,3 +968,67 @@ def test_flythrough_frame_matches_cpu_on_card(cuda_device):
     mse = float(((img.cpu() - ref) ** 2).mean())
     assert 10 * math.log10(1.0 / max(mse, 1e-12)) >= 35.0
     assert float(img.std()) > 0.01
+
+
+@pytest.mark.cuda
+def test_sharded_composed_frame_equals_unsharded_on_card(cuda_device):
+    """dryrun_multichip on a 4-entry mesh of one card (the small testbed,
+    2 envs a shard): state and frames bit-equal to the same world stepped
+    unsharded, one K1 and one K2 launch per shard."""
+    from clap_tpu_torch.bridge import tree_leaves
+    from clap_tpu_torch.engine.frame import step_and_render
+    from clap_tpu_torch.parallel.multichip import (dryrun_multichip,
+                                                   multichip_world)
+
+    before = (R.raster_tile.launches, R.raster_depth.launches)
+    gs, mean, frames = dryrun_multichip(4, devices=[cuda_device] * 4)
+    torch.cuda.synchronize()
+    assert (R.raster_tile.launches - before[0],
+            R.raster_depth.launches - before[1]) == (4, 4)
+    w = multichip_world(8, cuda_device)
+    gs_u, frames_u = step_and_render(w["gw"], w["renderer"], w["gs"],
+                                     w["ins"])
+    assert frames.is_cuda and torch.equal(frames, frames_u)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(gs),
+                                                  tree_leaves(gs_u)))
+    assert abs(float(mean) - float(frames_u.double().mean())) \
+        <= 1e-6 * abs(float(mean))
+
+
+@pytest.mark.cuda
+def test_distinct_envs_match_cpu_on_card(cuda_device):
+    """chip_smoke.py phase 5's inputs (each env its own walk, jump and
+    camera turn) at 4 envs × 256² for 4 frames on the card: every env's
+    walker elsewhere, the first and last env's images differ, and each
+    env's last frame against the same state on the plain CPU path (PSNR
+    >= 35 dB)."""
+    import chip_smoke as CS
+
+    w = CS.build_slice(cuda_device, 4)
+    d = CS.drive_frames(w, torch.cuda.synchronize, CS.require, frames=3)
+    psnr = CS.cpu_psnr(w, d)
+    assert len(psnr) == 4 and min(psnr) >= 35.0
+    assert not torch.equal(d["imgs"][0], d["imgs"][-1])
+
+
+@pytest.mark.cuda
+def test_normal_maps_and_material_fbm_match_cpu_on_card(cuda_device):
+    """chip_smoke.py phase 8b at 2 envs: the textured frame with normal-map
+    layers (tangent-space TBN) and material fBm through the gather path on
+    the card against the CPU (PSNR >= 35 dB per env). On the pixels each
+    feature moves by chip_smoke.FEATURE_RMS RMS in the CPU's frame, the
+    card's frame is >= 35 dB from the CPU's and the card's frame without
+    that feature < 35 dB."""
+    import chip_smoke as CS
+
+    t = CS.tbn_fbm_frames(cuda_device, 2)
+    assert t["launches"]["raster_tile"] == 1
+    img, cpu = t["img"].cpu(), t["cpu"]
+    assert bool(torch.isfinite(img).all())
+    assert min(CS.env_psnr(img, cpu)) >= 35.0
+    for off in ("no_normals", "no_fbm"):
+        moved = ((cpu - t["cpu_" + off]) ** 2).mean(-1).sqrt() \
+            >= CS.FEATURE_RMS
+        assert bool(moved.reshape(2, -1).any(1).all())
+        assert min(CS.env_psnr(img, cpu, moved)) >= 35.0
+        assert max(CS.env_psnr(t[off].cpu(), cpu, moved)) < 35.0

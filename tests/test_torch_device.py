@@ -128,6 +128,13 @@ _KEYS = np.linspace(0.0, 1.0, 4).astype(np.float32)
 _Q = np.tile(np.array([0, 0, 0, 1], np.float32), (4, 1))
 
 # every public builder of the port, without a device argument
+def _multichip_world():
+    """The sharded dryrun's world (its state) without a device."""
+    from clap_tpu_torch.parallel.multichip import multichip_world
+
+    return multichip_world(2)["gs"]
+
+
 BUILDERS = {
     "build_testbed": lambda: ttb.build_testbed(**ENTRY_SCENE),
     "build_demo_rig": ttb.build_demo_rig,
@@ -176,6 +183,7 @@ BUILDERS = {
     "Engine": _engine_state,
     "fuzz_batch": _fuzz_batch,
     "demo_build_world": _demo_world,
+    "multichip_world": lambda: _multichip_world(),
     "from_numpy": lambda: from_numpy(Inputs(
         motion=np.zeros((1, 2), np.float32), jump=np.zeros(1, bool),
         cam_delta=np.zeros(3, np.float32), dash=np.zeros(1, bool))),

@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 83 and bad == "[]"
+    assert int(n) >= 86 and bad == "[]"
 
 
 @pytest.mark.parametrize("module", ["clap_tpu_torch.render.charskin",
@@ -143,10 +143,21 @@ def test_ui_and_demo_modules_import_no_jax_and_no_pil(module):
     assert r.returncode == 0, r.stderr
 
 
-# what of clap_tpu/ the port has no counterpart for, and why
+PARALLEL = ["clap_tpu_torch.parallel", "clap_tpu_torch.parallel.sharding",
+            "clap_tpu_torch.parallel.multichip"]
+
+
+@pytest.mark.parametrize("module", PARALLEL)
+def test_parallel_modules_import_no_jax(module):
+    """Env-axis sharding and the sharded composed frame, each on its own."""
+    test_skinned_and_textured_modules_import_no_jax(module)
+
+
+# what of clap_tpu/ the port has no counterpart for, and why: the TPU's
+# row selects and its Pallas launch of K3 (env-axis sharding is ported,
+# clap_tpu_torch/parallel/)
 NOT_PORTED = {
     "ops/gatherx.py": "the TPU row gather; the port indexes plainly",
-    "parallel/sharding.py": "multi-chip sharding; no one-card counterpart",
     "ops/ca2d.py:on_tpu": "the TPU backend test",
     "ops/ca2d.py:ca2d_run_pallas": "the Pallas launch of K3; the port's "
                                    "kernel is ca2d_run_fused",
@@ -236,12 +247,24 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("script", ["tools/torch_profile_frame.py",
                                     "tools/torch_raster_ab.py",
-                                    "tools/torch_ca2d_ab.py"])
+                                    "tools/torch_ca2d_ab.py",
+                                    "tools/torch_server.py",
+                                    "tools/torch_packer.py",
+                                    "tools/torch_smoke_phases.py"])
 def test_card_tools_import_no_jax(script):
     """The tools that run on the card (which has no JAX)."""
     src = (REPO / script).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|clap_tpu)\b", src,
                          re.MULTILINE)
+
+
+def test_smoke_phases_tool_refuses_without_a_card():
+    """tools/torch_smoke_phases.py runs chip_smoke.py's phases on a card
+    only: without one it prints no result and exits 2."""
+    r = subprocess.run([sys.executable, "tools/torch_smoke_phases.py", "18"],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2 and not r.stdout
+    assert "CUDA card" in r.stderr
 
 
 def test_kernel_wrappers_count_only_kernel_launches():
