@@ -180,6 +180,16 @@ Phases, one or more lines each:
     per frame, wall and device busy ms per frame of each run, K1/K2
     bit-exact on the last shard's records, timed and bounded.
 
+19. bench — ``bench_torch.py`` (the JAX bench's twelve configurations on
+    the port, clap_tpu_torch/bench.py) through its own harness: (a)
+    ``--config kernel_parity`` in its child process: true (K3, K1 and K2
+    bit-exact against their plain versions on bench.py's scenes, K1
+    against raster_brute at bench.py's bar), each kernel launched in it;
+    (b) a whole run with ``BENCH_BUDGET_S`` at ``BENCH_SMOKE_BUDGET_S``:
+    the governor runs the headline and the cheapest configs and skips the
+    rest; its last line is final, names the card, has a headline > 0 and
+    the budget-skipped rows, and no config that ran failed.
+
 Each new path's kernel launches are counted from 0 over its driven run.
 
 Then a JSON line of the kernels (``raster_tile`` / ``raster_depth`` with
@@ -188,7 +198,8 @@ each path's launches and kernel numbers as prefixed fields: ``textured_``,
 ``shading_rate_``, ``game_frame_``, ``particles_``, ``msaa_``,
 ``shadow_msaa_``, ``level_``, ``level_batch_``, ``engine_``,
 ``engine_particles_``, ``overlay_``, ``overlay_particles_``,
-``flythrough_``, ``sharded_``), the
+``flythrough_``, ``sharded_``; ``bench_parity_launches``: each kernel's
+launches in phase 19's kernel_parity child), the
 nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1);
 with no CUDA device the script exits with code 2 and prints no result.
@@ -200,25 +211,27 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+from clap_tpu_torch.bench import (N_SLICE, RES, _CHILD_MARK, _configs,
+                                  build_batched, build_full_frame,
+                                  build_production, build_slice,
+                                  device_busy_ms, device_busy_ops,
+                                  headless_world, log, look_at,
+                                  make_renderer, median, parity_scene,
+                                  pose_and_skin, production_frame,
+                                  production_geometry, require, setup_card,
+                                  skinning_rig)
 
 N_HEADLESS = 4096
-N_SLICE = 64
-RES = 256
 NAN_AT = 59        # phase 16: the frame that steps and renders a NaN state
 TBN_ENVS = 4       # phase 8b's envs
 FEATURE_RMS = 0.02     # phase 8b: a pixel a feature moves by this RMS or more
 SHARD_FRAMES = 3   # phase 18: the flagship's checked frames each way
 SHARD_REPS = 3     # phase 18: its wall-timed and profiled frames each way
 MESH_ENTRIES = 4   # phase 18: the one-card mesh's entries
-
-
-def log(msg):
-    print(msg, flush=True)
-
-
-def require(cond, msg):
-    if not cond:
-        raise RuntimeError(f"check failed: {msg}")
+BENCH = Path(__file__).resolve().parent / "bench_torch.py"
+BENCH_SMOKE_BUDGET_S = 80    # phase 19: the headline and the cheapest configs
 
 
 def main() -> int:
@@ -227,16 +240,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    import numpy as np
-
     from clap_tpu_torch import cuda_build
-    from clap_tpu_torch import mathx as mx
     from clap_tpu_torch.bridge import tree_map
-    from clap_tpu_torch.engine.step import engine_step, inputs_zero
+    from clap_tpu_torch.engine.step import engine_step
     from clap_tpu_torch.render import raster as R
     from clap_tpu_torch.render.scenerender import kernel_attrs_ok
-    from clap_tpu_torch.scene import testbed as tbm
-    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
 
     sync = torch.cuda.synchronize
     laps = {}                        # phase(s) -> host seconds
@@ -276,19 +284,7 @@ def main() -> int:
     check_tile, check_depth = parity_checks(sync)
 
     # ---------------------------------------------------------------- 3a
-    t = terrain_init_square_landscape(5, -8.0, 0.0, -8.0, 16.0, 24)
-    verts = torch.as_tensor(t.vx, device=dev)
-    faces = torch.as_tensor(t.idx.reshape(-1, 3).astype(np.int32),
-                            device=dev)
-    eye = torch.tensor([6.0, 6.0, 6.0], device=dev)
-    view = mx.mat4_look_at(eye, torch.zeros(3, device=dev),
-                           torch.tensor([0.0, 1.0, 0.0], device=dev))
-    proj = mx.mat4_perspective(math.pi / 3, 1.0, 0.1, 50.0, device=dev)
-    clip = torch.cat([verts, torch.ones_like(verts[:, :1])], -1) \
-        @ (proj @ view).T
-    rec, ok = R.assemble_tri_records(
-        *R.project_to_screen(clip[None], 128, 128), faces,
-        torch.ones((1, faces.shape[0]), dtype=torch.bool, device=dev))
+    rec, ok = parity_scene(128, 128, dev)
     binned = R.bin_triangles(rec, ok, 128, 128)
     k, _r, _ = check_tile("scene 128^2",
                           R.kernel_inputs(rec, binned, 128, 128))
@@ -299,24 +295,19 @@ def main() -> int:
                                                depth_only=True))
 
     # ---------------------------------------------------------------- 4
-    tb = tbm.build_testbed(seed=42, side=64.0, nr_v=128, n_dynamic=8,
-                           max_entities=64, device=dev)
-    st = tbm.replicate_state(tb.state0, N_HEADLESS)
-    ins = tree_map(lambda x: x.expand(N_HEADLESS, *x.shape).clone(),
-                   inputs_zero(1, device=dev))
-    ins.motion[:, 0, 0] = 1.0
-    st = engine_step(tb.cfg, st, ins)
+    cfg, st, ins = headless_world(N_HEADLESS, dev)
+    st = engine_step(cfg, st, ins)
     sync()
     t0 = time.perf_counter()
     for _ in range(30):
-        st = engine_step(tb.cfg, st, ins)
+        st = engine_step(cfg, st, ins)
     sync()
     dt = (time.perf_counter() - t0) / 30
     require(bool(torch.isfinite(st.phys.pos).all()), "headless state finite")
     require(bool((st.frame == 31).all()), "headless frame counter")
     log(f"phase 4 headless: {N_HEADLESS} envs, {dt * 1e3:.2f} ms/frame, "
         f"{N_HEADLESS / dt:.0f} env-steps/s ({smi})")
-    del st, ins, tb
+    del st, ins, cfg
 
     # ---------------------------------------------------------------- 5
     w5 = build_slice(dev)
@@ -460,6 +451,11 @@ def main() -> int:
                              flag)
     del flag
     lap("18")
+
+    # -------------------------------------------------------------- 19
+    torch.cuda.empty_cache()
+    bench = run_bench_phase(smi)
+    lap("19")
     log(f"phase host seconds: {json.dumps(laps)}, total "
         f"{sum(laps.values()):.0f} s")
 
@@ -538,47 +534,30 @@ def main() -> int:
          "textured_max_abs_err": tex["max_abs_err"],
          "textured_ms": tex["ms"], "textured_plain_ms": tex["plain_ms"],
          "textured_bound_ms": tex["bound"][0],
-         "textured_bound_by": tex["bound"][1], **paths("raster_tile")},
+         "textured_bound_by": tex["bound"][1], **paths("raster_tile"),
+         "bench_parity_launches": bench["raster_tile"]},
         {"name": "raster_depth", "route": "cuda", "source": src,
          "replaces": "clap_tpu/render/raster.py:633",
          "launches": launches["raster_depth"], "max_abs_err": depth_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
          "textured_launches": tex["launches"]["raster_depth"],
-         **paths("raster_depth")},
+         **paths("raster_depth"),
+         "bench_parity_launches": bench["raster_depth"]},
         {"name": "ca2d_run_fused", "route": "cuda",
          "source": "clap_tpu_torch/csrc/ca2d.cu",
          "replaces": "clap_tpu/ops/ca2d.py:192",
          "launches": ca["launches"], "max_abs_err": ca["max_abs_err"],
          "ms": ca["ms"], "plain_ms": ca["plain_ms"],
          "bound_ms": ca["bound_ms"], "bound_by": ca["bound_by"],
-         "library_ms": None, "barrier_bound_ms": ca["barrier_bound_ms"]},
+         "library_ms": None, "barrier_bound_ms": ca["barrier_bound_ms"],
+         "bench_parity_launches": bench["ca2d_run_fused"]},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def setup_card():
-    """Card 0 made current, float32 products at full precision (TF32 off):
-    (device, the nvidia-smi line of the card's name and power limit)."""
-    import torch
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0].strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    require(torch.get_float32_matmul_precision() == "highest",
-            "float32 matmul precision")
-    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul off")
-    return dev, smi
 
 
 def parity_checks(sync):
@@ -663,344 +642,71 @@ def time_ms(fn, args, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def build_slice(dev, n_envs=N_SLICE, textured=False, fbm=False):
-    """The slice's world on ``dev``: the composed testbed of bench.py:544-625
-    (2 chars, 4 terrain chunks, 96 entities, record_compact 8192, raster_cap
-    2048, one directional light) with skinned characters (bench.py:565-588)
-    and the game wiring of bench.py:546-559 (the terrain a permanent switch,
-    the demo rig on both characters), ``n_envs`` envs at their first state,
-    each with its own inputs (``slice_inputs``). ``textured``: the textured
-    models and textures of the ``step_and_render_textured`` config
-    (bench.py:566-575); ``fbm``: material fBm (tests/test_torch_texture.py's
-    parameters) on the sphere and terrain models; kernel_attrs holds where the
-    tables allow it, as bench.py:620-621 sets it. Returns a dict: tb, ent,
-    rt, cs, textures, lights, opts, gw, gs, ins_at (frame -> Inputs), ins
-    (frame 0's)."""
+def _raw_busy_ns(prof):
+    """The summed duration of the CUDA activity among ``prof``'s raw
+    events. ``prof.profiler.kineto_results`` is private to torch.profiler:
+    ``check_device_busy`` holds this sum against ``key_averages()``'s once a
+    run, and a torch without the attribute stops the script here."""
+    from torch.autograd import DeviceType
+
+    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if res is None:
+        raise RuntimeError("torch.profiler has no kineto_results in this "
+                           "torch: device_busy_ms cannot read its raw events")
+    return sum(e.duration_ns() for e in res.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def check_device_busy(dev):
+    """Hold ``device_busy_ms``'s raw sum against ``key_averages()``'s (the
+    CUDA rows' self device time) on a small workload of kernels, a fill and
+    a copy: they must agree within 1 us or 0.1 %. Returns (raw ms,
+    key_averages ms)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    from clap_tpu_torch.anim.system import anim_instances_init
-    from clap_tpu_torch.engine.game import GameSessionState, GameWorld
-    from clap_tpu_torch.engine.gamelogic import (game_config_empty,
-                                                 game_state_init)
-    from clap_tpu_torch.render.lights import lights_empty
-    from clap_tpu_torch.render.pipeline import RenderOptions
-    from clap_tpu_torch.render.scenerender import (build_render_tables,
-                                                   default_edge_ids,
-                                                   kernel_attrs_ok,
-                                                   shadow_static_mask)
-    from clap_tpu_torch.scene import testbed as tbm
-
-    tb = tbm.build_testbed(seed=42, side=64.0, nr_v=128, n_dynamic=8,
-                           max_entities=96, n_chars=2, terrain_chunks=4,
-                           device=dev)
-    ent = tb.cfg.entities
-    models = tbm.testbed_models(tb, skinned_chars=True, textured=textured)
-    if fbm:       # the spheres and the terrain chunks (always in view)
-        models = [m._replace(mat_fbm=(0.5, 2.0, 0.2, 0.9, 0.0, 0.6))
-                  if i == 2 or i >= 4 else m for i, m in enumerate(models)]
-    rt = build_render_tables(
-        models, ent.model_id, ent.active,
-        entity_edge_id=default_edge_ids(ent.active, ent.body_is_char),
-        entity_shadow_static=shadow_static_mask(ent), device=dev)
-    cs = tbm.build_testbed_char_skin(tb, models, rt, device=dev)
-    textures = tbm.testbed_textures(device=dev) if textured else None
-    lights = lights_empty(1, device=dev)
-    d = torch.tensor([-0.4, -0.8, -0.4], device=dev)
-    lights.direction[0] = d / torch.linalg.vector_norm(d)
-    lights.color[0] = torch.tensor([1.0, 0.95, 0.9], device=dev)
-    lights.is_dir[0] = True
-    lights.active[0] = True
-    opts = RenderOptions(width=RES, height=RES, shadow_size=256,
-                         film_grain=0.0, record_compact=8192,
-                         raster_cap=2048, kernel_attrs=kernel_attrs_ok(rt))
-    sk, lib, acfg = tbm.build_demo_rig(device=dev)
-    gcfg = game_config_empty(1, 96, device=dev)._replace(
-        switch_entity=torch.tensor([0], dtype=torch.int32, device=dev),
-        switch_valid=torch.tensor([True], device=dev),
-        switch_permanent=torch.tensor([True], device=dev))
-    gw = GameWorld(scene=tb.cfg, game=gcfg, anim=acfg, anim_sk=sk,
-                   anim_lib=lib)
-    gs = tbm.replicate_state(GameSessionState(
-        engine=tb.state0, game=game_state_init(1, 2, device=dev),
-        anim=anim_instances_init(2, device=dev),
-        joint_mats=torch.eye(4, device=dev).repeat(2, 3, 1, 1)), n_envs)
-    ins_at = slice_inputs(n_envs, dev)
-    return dict(tb=tb, ent=ent, rt=rt, cs=cs, textures=textures,
-                lights=lights, opts=opts, gw=gw, gs=gs, ins_at=ins_at,
-                ins=ins_at(0))
-
-
-def slice_inputs(n_envs, dev):
-    """Each env its own inputs, as tests/test_engine.py:46-60 walks its
-    envs in different directions: env e's first character walks along
-    angle 2 pi e / n_envs and jumps at frame 2 + e % 8, and its camera
-    turns at its own yaw rate (-0.03 to 0.03 rad a frame over the envs);
-    the second character stands. Returns ``ins_at(frame)`` -> Inputs
-    (B, ...): the tensors are made once on ``dev``, and a frame's jump is
-    one comparison on the card."""
-    import torch
-
-    from clap_tpu_torch.engine.step import Inputs
-
-    e = torch.arange(n_envs, device=dev)
-    ang = e.float() * (2 * math.pi / n_envs)
-    motion = torch.zeros((n_envs, 2, 2), device=dev)
-    motion[:, 0] = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
-    cam = torch.zeros((n_envs, 3), device=dev)
-    cam[:, 1] = 0.03 * (2.0 * e.float() / max(n_envs - 1, 1) - 1.0)
-    jump_at = (2 + e % 8)[:, None]
-    first = torch.arange(2, device=dev)[None] == 0
-    dash = torch.zeros((n_envs, 2), dtype=torch.bool, device=dev)
-
-    def ins_at(frame):
-        return Inputs(motion=motion, jump=(jump_at == frame) & first,
-                      cam_delta=cam, dash=dash)
-
-    return ins_at
-
-
-def sun_lights(dev, n=1, color=(1.0, 0.95, 0.9)):
-    """``n`` light slots, slot 0 the one directional light of the JAX
-    bench's scenes (direction (-0.4, -0.8, -0.4), bench.py:237-244)."""
-    import torch
-
-    from clap_tpu_torch.render.lights import lights_empty
-
-    lights = lights_empty(n, device=dev)
-    d = torch.tensor([-0.4, -0.8, -0.4], device=dev)
-    lights.direction[0] = d / torch.linalg.vector_norm(d)
-    lights.color[0] = torch.tensor(color, device=dev)
-    lights.is_dir[0] = True
-    lights.active[0] = True
-    return lights
-
-
-def _cube_field(t, n_cubes):
-    """bench.py's cube "entities" on the heightfield (bench.py:189-208,
-    313-328): per cube its verts, normals and faces, seeded by 9."""
-    import numpy as np
-
-    from clap_tpu_torch.scene.primitives import cube
-
-    cv, cn, _cuv, cf = cube(1.6)
-    rng = np.random.default_rng(9)
-    gx = rng.uniform(-30.0, 30.0, n_cubes)
-    gz = rng.uniform(-30.0, 30.0, n_cubes)
-    hg = t.heights
-    nv = hg.shape[0]
-    out = []
-    for i in range(n_cubes):
-        xi = int((gx[i] + 32.0) / 64.0 * (nv - 1))
-        zi = int((gz[i] + 32.0) / 64.0 * (nv - 1))
-        h = float(hg[min(xi, nv - 1), min(zi, nv - 1)])
-        out.append((cv + np.array([gx[i], h + 0.8, gz[i]], np.float32), cn,
-                    cf))
-    return out
-
-
-def look_at(eyes, target, dev):
-    """View matrices (B, 4, 4) of eyes (B, 3) looking at ``target``."""
-    from clap_tpu_torch import mathx as mx
-
-    return mx.mat4_look_at(eyes, mx.const(target, dev).expand_as(eyes),
-                           mx.const([0.0, 1.0, 0.0], dev).expand_as(eyes))
-
-
-def build_full_frame(dev, nr_v=96, n_cubes=0, raster_cap=0, width=1280,
-                     height=720):
-    """The JAX bench's ``full_frame`` scene (bench.py:168-244): terrain
-    (seed 3, 64 m, ``nr_v``² verts) and ``n_cubes`` cubes as hand-built
-    member geometry of one env, faces in Morton order, with the
-    corner-expanded static streams (``corner_verts`` corner-major,
-    ``shadow_corner_verts`` in record order); 512² cascades, film grain
-    off, ``raster_cap``; the camera at (0, 18, 28) looking at (0, 2, 0).
-    Returns a dict: geom, opts, eye, view, proj, lights, host (vx, normals,
-    faces as numpy)."""
-    import math
-
-    import numpy as np
-    import torch
-
-    from clap_tpu_torch import mathx as mx
-    from clap_tpu_torch.render.pipeline import RenderOptions, SceneGeometry
-    from clap_tpu_torch.render.raster import (cluster_faces,
-                                              expand_corners_major,
-                                              expand_corners_record)
-    from clap_tpu_torch.device import resolve_device
-    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
-
-    dev = resolve_device(dev)
-    t = terrain_init_square_landscape(3, -32.0, 0.0, -32.0, 64.0, nr_v)
-    vx, nrm, idx = t.vx, t.norm, t.idx.reshape(-1, 3)
-    if n_cubes:
-        vs, ns, fs = [vx], [nrm], [idx]
-        base = vx.shape[0]
-        for cv, cn, cf in _cube_field(t, n_cubes):
-            vs.append(cv)
-            ns.append(cn)
-            fs.append(cf + base)
-            base += cv.shape[0]
-        vx = np.concatenate(vs).astype(np.float32)
-        nrm = np.concatenate(ns).astype(np.float32)
-        idx = np.concatenate(fs).astype(np.int32)
-    f_np = np.asarray(cluster_faces(vx, idx)[0])
-    V, T = vx.shape[0], f_np.shape[0]
-    f32 = dict(dtype=torch.float32, device=dev)
-    geom = SceneGeometry(
-        verts=torch.as_tensor(vx, device=dev)[None],
-        normals=torch.as_tensor(nrm, device=dev),
-        faces=torch.as_tensor(f_np, device=dev),
-        face_valid=torch.ones((1, T), dtype=torch.bool, device=dev),
-        base_color=torch.full((V, 3), 0.45, **f32),
-        rough_metal=torch.tensor([[0.8, 0.0]], **f32).repeat(V, 1),
-        emission=torch.zeros((V, 3), **f32),
-        corner_verts=expand_corners_major(vx, f_np, dev)[None],
-        shadow_corner_verts=expand_corners_record(vx, f_np, dev)[None])
-    opts = RenderOptions(width=width, height=height, shadow_size=512,
-                         film_grain=0.0, raster_cap=raster_cap)
-    eye = torch.tensor([[0.0, 18.0, 28.0]], device=dev)
-    return dict(geom=geom, opts=opts, eye=eye,
-                view=look_at(eye, [0.0, 2.0, 0.0], dev),
-                proj=mx.mat4_perspective(math.pi / 3, width / height, 0.1,
-                                         200.0, device=dev),
-                lights=sun_lights(dev, 2), host=(vx, nrm, f_np))
-
-
-def build_production(dev, width=1280, height=720, nr_v=240, n_cubes=256,
-                     bake_size=2048, cap=10240 * 8):
-    """The JAX bench's ``full_frame_production`` scene (bench.py:281-366):
-    the dense scene as render tables (static terrain entity 0, dynamic
-    cube-field entity 1), kernel_attrs where eligible, raster_cap 4096,
-    cluster records with ``cap`` records, and the terrain's static shadow
-    baked at ``bake_size``². Returns a dict: rt, lights, opts, cap, mxs
-    (1, 2, 4, 4), eye (1, 3), proj, mx0, bake (s), static_shadow."""
-    import math
-
-    import numpy as np
-    import torch
-
-    from clap_tpu_torch import mathx as mx
-    from clap_tpu_torch.render.pipeline import RenderOptions
-    from clap_tpu_torch.render.scenerender import (bake_static_shadow,
-                                                   build_render_tables,
-                                                   kernel_attrs_ok,
-                                                   model_from_mesh)
-    from clap_tpu_torch.device import resolve_device
-    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
-
-    dev = resolve_device(dev)
-    t = terrain_init_square_landscape(3, -32.0, 0.0, -32.0, 64.0, nr_v)
-    vs, ns, fs = [], [], []
-    base = 0
-    for cv, cn, cf in _cube_field(t, n_cubes):
-        vs.append(cv)
-        ns.append(cn)
-        fs.append(cf + base)
-        base += cv.shape[0]
-    models = [
-        model_from_mesh(t.vx, t.norm, t.idx.reshape(-1, 3),
-                        base_color=(0.45, 0.45, 0.45), with_lods=False),
-        model_from_mesh(np.concatenate(vs), np.concatenate(ns),
-                        np.concatenate(fs), base_color=(0.6, 0.5, 0.4),
-                        with_lods=False)]
-    rt = build_render_tables(models, np.array([0, 1]), np.ones(2, bool),
-                             entity_shadow_static=np.array([True, False]),
-                             device=dev)
-    lights = sun_lights(dev)
-    mx0 = torch.eye(4, device=dev).repeat(2, 1, 1)
-    t0 = time.perf_counter()
-    static = bake_static_shadow(rt, mx0, lights.direction[0],
-                                shadow_size=bake_size)
-    if static[0].is_cuda:
+    a = torch.randn(512, 512, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            a = torch.tanh(a @ a * 1e-3)
+        torch.zeros(1 << 20, device=dev)
+        a.cpu()
         torch.cuda.synchronize()
-    bake = time.perf_counter() - t0
-    opts = RenderOptions(width=width, height=height, shadow_size=512,
-                         film_grain=0.0, raster_cap=4096,
-                         kernel_attrs=kernel_attrs_ok(rt))
-    return dict(rt=rt, lights=lights, opts=opts, cap=cap,
-                mxs=torch.eye(4, device=dev).repeat(1, 2, 1, 1),
-                eye=torch.tensor([[0.0, 18.0, 28.0]], device=dev),
-                proj=mx.mat4_perspective(math.pi / 3, width / height, 0.1,
-                                         200.0, device=dev),
-                mx0=mx0, bake=bake, static_shadow=static)
+    raw = _raw_busy_ns(prof) / 1e6
+    avg = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            avg += (e.self_cuda_time_total if t is None else t) / 1e3
+    require(raw > 0 and abs(raw - avg) <= max(1e-3, 1e-3 * avg),
+            f"the profiler's raw device sum {raw:.4f} ms equals "
+            f"key_averages()'s {avg:.4f} ms")
+    return raw, avg
 
 
-def production_geometry(w, eyes):
-    """bench.py:372-384: the views of ``eyes`` (B, 3) and the cluster
-    records of the production tables: (geom, views)."""
+def frame_times(fn, reps):
+    """``reps`` wall times (host clock around one call that ends in a
+    synchronize) and ``reps`` device busy times (``device_busy_ms``) of
+    ``fn()``, in ms: (wall list, busy list)."""
     import torch
 
-    from clap_tpu_torch.render.scenerender import \
-        assemble_cluster_records_batch
-    from clap_tpu_torch.render.view import make_subview
-
-    views = look_at(eyes, [0.0, 2.0, 0.0], eyes.device)
-    planes = make_subview(views, w["proj"]).planes
-    geom = assemble_cluster_records_batch(
-        w["rt"], w["mxs"].expand(eyes.shape[0], -1, -1, -1),
-        torch.ones((eyes.shape[0], 2), dtype=torch.bool, device=eyes.device),
-        planes, eyes, views, w["proj"], cap=w["cap"])
-    return geom, views
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return wall, [device_busy_ms(fn) for _ in range(reps)]
 
 
-def production_frame(w, eyes):
-    """One ``full_frame_production`` frame of ``eyes`` (B, 3)."""
-    from clap_tpu_torch.render.pipeline import render_frame_dynamic_batch
-
-    geom, views = production_geometry(w, eyes)
-    return render_frame_dynamic_batch(w["opts"], geom, views, w["proj"],
-                                      w["lights"], eyes,
-                                      static_shadow=w["static_shadow"])
-
-
-def build_batched(dev, n_envs=64, res=256):
-    """The JAX bench's ``batched_render`` scene (bench.py:423-476): one
-    shared terrain (seed 11, 32 m, 48² verts) as render tables, assembled
-    once from a reference view (member granularity, the terrain skips
-    culling) with its env axis dropped; kernel_attrs where eligible, 256²
-    cascade atlas, SSAO off; ``n_envs`` eyes on a ring of radius 12 at
-    height 9 looking at the origin. Returns a dict: rt, geom, opts,
-    lights, eyes, views, proj."""
-    import math
-
-    import numpy as np
-    import torch
-
-    from clap_tpu_torch import mathx as mx
-    from clap_tpu_torch.render.pipeline import PER_ENV, RenderOptions
-    from clap_tpu_torch.render.scenerender import (
-        assemble_scene_geometry_batch, build_render_tables, kernel_attrs_ok,
-        model_from_mesh)
-    from clap_tpu_torch.render.view import make_subview
-    from clap_tpu_torch.device import resolve_device
-    from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
-
-    dev = resolve_device(dev)
-    t = terrain_init_square_landscape(11, -16.0, 0.0, -16.0, 32.0, 48)
-    rt = build_render_tables(
-        [model_from_mesh(t.vx, t.norm, t.idx.reshape(-1, 3),
-                         with_lods=False)], np.array([0]), np.ones(1, bool),
-        device=dev)
-    proj = mx.mat4_perspective(math.pi / 3, 1.0, 0.1, 100.0, device=dev)
-    eye0 = torch.tensor([[12.0, 9.0, 0.0]], device=dev)
-    view0 = look_at(eye0, [0.0, 0.0, 0.0], dev)
-    gb = assemble_scene_geometry_batch(
-        rt, torch.eye(4, device=dev)[None, None],
-        torch.ones((1, 1), dtype=torch.bool, device=dev),
-        make_subview(view0, proj).planes, eye0,
-        skip_culling=torch.tensor([True], device=dev))
-    geom = gb._replace(**{f: getattr(gb, f)[0] for f in PER_ENV
-                          if getattr(gb, f) is not None})
-    ang = torch.arange(n_envs, dtype=torch.float32, device=dev) \
-        * (2 * math.pi / n_envs)
-    eyes = torch.stack([12 * torch.cos(ang), torch.full_like(ang, 9.0),
-                        12 * torch.sin(ang)], -1)
-    opts = RenderOptions(width=res, height=res, shadow_size=256,
-                         film_grain=0.0, ssao=False,
-                         kernel_attrs=kernel_attrs_ok(rt))
-    return dict(rt=rt, geom=geom, opts=opts,
-                lights=sun_lights(dev, color=(1.0, 1.0, 1.0)), eyes=eyes,
-                views=look_at(eyes, [0.0, 0.0, 0.0], dev), proj=proj)
+def spread(ms):
+    """``median (range lo-hi)`` of a list of ms."""
+    s = sorted(ms)
+    return f"{s[len(s) // 2]:.2f} ms (range {s[0]:.2f}-{s[-1]:.2f})"
 
 
 def build_game_frame(dev, width=640, height=360, scene=None, seed=3):
@@ -1031,24 +737,6 @@ def build_game_frame(dev, width=640, height=360, scene=None, seed=3):
                 lights=w["lights"], opts=w["opts"], gw=w["gw"],
                 gs=replicate_state(w["session0"], 1), ins=ins,
                 renderer=renderer)
-
-
-def make_renderer(w, static, to=None):
-    """The SceneRenderer of a ``build_slice`` world with the baked static
-    shadow; ``to="cpu"`` makes a copy of it on the CPU."""
-    import torch
-
-    from clap_tpu_torch.bridge import tree_map
-    from clap_tpu_torch.engine.frame import SceneRenderer
-
-    def mv(t):
-        return tree_map(lambda x: x.to(to) if to is not None
-                        and torch.is_tensor(x) else x, t)
-
-    return SceneRenderer(mv(w["rt"]), mv(w["lights"]), w["opts"],
-                         skip_culling=mv(w["ent"].skip_culling),
-                         static_shadow=mv(static), lod_scale=RES / 720.0,
-                         char_skin=mv(w["cs"]), textures=mv(w["textures"]))
 
 
 def drive_frames(w, sync, require, frames=10):
@@ -1383,130 +1071,6 @@ def driven_run(reps, unit="frames"):
     """What a phase's driven run holds: the warm-up and ``frame_times``'s
     calls."""
     return f"1 warm-up, {reps} wall-timed and {reps} profiled {unit}"
-
-
-def _raw_busy_ns(prof):
-    """The summed duration of the CUDA activity among ``prof``'s raw
-    events. ``prof.profiler.kineto_results`` is private to torch.profiler:
-    ``check_device_busy`` holds this sum against ``key_averages()``'s once a
-    run, and a torch without the attribute stops the script here."""
-    from torch.autograd import DeviceType
-
-    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
-    if res is None:
-        raise RuntimeError("torch.profiler has no kineto_results in this "
-                           "torch: device_busy_ms cannot read its raw events")
-    return sum(e.duration_ns() for e in res.events()
-               if e.device_type() == DeviceType.CUDA)
-
-
-def device_busy_ops(fn):
-    """The card's busy ms in one call of ``fn()`` and its number of device
-    operations (kernels, copies, fills): (ms, ops). The ms are the summed
-    time of the call's kernels, copies and fills under torch.profiler
-    (CUDA activity), read from its raw events (the same sum as
-    ``key_averages()``, which takes 10-20 s to build for the 54,000 kernels
-    of a level frame). A frame queues more kernels than the launch queue
-    holds, so CUDA events around it measure the host's pace as well; the
-    profiler's sum does not.
-
-    A record can lose device events. On an H100 one record lost all of
-    them; others lost kernels in their first millisecond or so (30 of a
-    render's 3,722, every tenth launch there; in a long run, 4-7 in every
-    record). So each record opens with 64 small launches and a
-    synchronize, which take that loss, and counts only the device events
-    that answer a host call made after that synchronize (by correlation
-    id). Every kernel launch of the call must have its kernel in the
-    record, else the call is profiled again, up to five records."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    pad = torch.zeros(1, device="cuda")
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(64):
-                pad.add_(1.0)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        events = list(prof.profiler.kineto_results.events())
-        host = [e for e in events if e.device_type() != DeviceType.CUDA]
-        start = min(e.correlation_id() for e in host
-                    if e.name() == "cudaDeviceSynchronize")
-        calls = {e.correlation_id(): e.name() for e in host
-                 if e.correlation_id() > start}
-        dev = [e for e in events if e.device_type() == DeviceType.CUDA
-               and e.correlation_id() in calls]
-        launches = {c for c, name in calls.items()
-                    if name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
-        lost = launches - {e.correlation_id() for e in dev}
-        if launches and not lost:
-            return sum(e.duration_ns() for e in dev) / 1e6, len(dev)
-        log(f"profiler record short: {len(lost)} of {len(launches)} kernel "
-            f"launches without their kernel; profiling again")
-    raise RuntimeError("five profiler records in a row lost kernels")
-
-
-def device_busy_ms(fn):
-    """The card's busy ms in one call of ``fn()`` (``device_busy_ops``)."""
-    return device_busy_ops(fn)[0]
-
-
-def check_device_busy(dev):
-    """Hold ``device_busy_ms``'s raw sum against ``key_averages()``'s (the
-    CUDA rows' self device time) on a small workload of kernels, a fill and
-    a copy: they must agree within 1 us or 0.1 %. Returns (raw ms,
-    key_averages ms)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    a = torch.randn(512, 512, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            a = torch.tanh(a @ a * 1e-3)
-        torch.zeros(1 << 20, device=dev)
-        a.cpu()
-        torch.cuda.synchronize()
-    raw = _raw_busy_ns(prof) / 1e6
-    avg = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            avg += (e.self_cuda_time_total if t is None else t) / 1e3
-    require(raw > 0 and abs(raw - avg) <= max(1e-3, 1e-3 * avg),
-            f"the profiler's raw device sum {raw:.4f} ms equals "
-            f"key_averages()'s {avg:.4f} ms")
-    return raw, avg
-
-
-def frame_times(fn, reps):
-    """``reps`` wall times (host clock around one call that ends in a
-    synchronize) and ``reps`` device busy times (``device_busy_ms``) of
-    ``fn()``, in ms: (wall list, busy list)."""
-    import torch
-
-    wall = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    return wall, [device_busy_ms(fn) for _ in range(reps)]
-
-
-def spread(ms):
-    """``median (range lo-hi)`` of a list of ms."""
-    s = sorted(ms)
-    return f"{s[len(s) // 2]:.2f} ms (range {s[0]:.2f}-{s[-1]:.2f})"
-
-
-def median(ms):
-    return sorted(ms)[len(ms) // 2]
 
 
 def reset_launches():
@@ -3598,48 +3162,11 @@ def run_skinning_phase(dev, smi, require, n_inst=1024, n_joints=64,
     """Phase 7: the JAX bench's config #3 (bench.py:75-136) on the card,
     its rig built as bench.py:88-115 builds it; four instances against the
     CPU path."""
-    import numpy as np
     import torch
 
-    from clap_tpu_torch.anim.clips import (PATH_ROTATION, PATH_TRANSLATION,
-                                           build_library, sample_pose)
-    from clap_tpu_torch.anim.joints import build_skeleton, joint_matrices
-    from clap_tpu_torch.anim.skin import skin_verts_batch
     from clap_tpu_torch.bridge import tree_map
 
-    rng = np.random.default_rng(0)
-    parent = [-1] + [(i - 1) // 2 for i in range(1, n_joints)]
-    invbind = np.tile(np.eye(4, dtype=np.float32), (n_joints, 1, 1))
-    base_t = rng.standard_normal((n_joints, 3)).astype(np.float32) * 0.1
-    base_r = np.tile(np.array([0, 0, 0, 1], np.float32), (n_joints, 1))
-    base_s = np.ones((n_joints, 3), np.float32)
-    sk = build_skeleton(parent, invbind, base_t, base_r, base_s,
-                        device="cpu")
-    keys = np.linspace(0, 2.0, 16)
-
-    def qr():
-        q = rng.standard_normal((16, 4)).astype(np.float32)
-        return q / np.linalg.norm(q, axis=-1, keepdims=True)
-
-    clip = []
-    for j in range(n_joints):
-        clip.append((j, PATH_ROTATION, keys, qr()))
-        clip.append((j, PATH_TRANSLATION, keys,
-                     rng.standard_normal((16, 3)).astype(np.float32) * 0.05))
-    lib = build_library([clip], n_joints, device="cpu")
-    verts = torch.as_tensor(rng.standard_normal((n_verts, 3)),
-                            dtype=torch.float32)
-    normals = verts / torch.linalg.vector_norm(verts, dim=-1, keepdim=True)
-    w = rng.random((n_verts, 4)).astype(np.float32)
-    w /= w.sum(-1, keepdims=True)
-    mesh = (verts, normals, torch.as_tensor(w),
-            torch.as_tensor(rng.integers(0, n_joints, (n_verts, 4)),
-                            dtype=torch.int32))
-
-    def pose_and_skin(sk, lib, mesh, ts):
-        clips = torch.zeros(ts.shape, dtype=torch.long, device=ts.device)
-        jts = joint_matrices(sk, sample_pose(lib, sk.base, clips, ts))
-        return skin_verts_batch(jts, *mesh)[0]
+    sk, lib, mesh = skinning_rig(n_joints, n_verts, "cpu")
 
     def to_dev(t):
         return tree_map(lambda x: x.to(dev), t)
@@ -3844,6 +3371,83 @@ def run_sharding_phase(dev, smi, require, check_tile, check_depth, flag):
                               f"cascade atlas {dims[1]}x{dims[0]}",
                               check_depth, srec, sbin, dims, True, smi)
     return res
+
+
+def bench_child(args, timeout, env=None):
+    """Run ``bench_torch.py`` with ``args`` to its end: (return code,
+    stdout). Past ``timeout`` s it gets SIGTERM, on which it stops its
+    running config's process and prints its line once more."""
+    p = subprocess.Popen([sys.executable, str(BENCH), *args], env=env,
+                         stdout=subprocess.PIPE, text=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.terminate()
+        out, _ = p.communicate()
+    return p.returncode, out
+
+
+def run_bench_phase(smi):
+    """Phase 19: bench_torch.py (the JAX bench's configurations on the
+    port) through its own harness. (a) ``--config kernel_parity``, the
+    child process alone: its result must be true (K3, K1 and K2 bit-exact
+    against their plain versions, K1 against raster_brute at bench.py's
+    bar) and each kernel launched in it. (b) A whole run with
+    ``BENCH_BUDGET_S`` = ``BENCH_SMOKE_BUDGET_S``, where the governor runs
+    only the headline and the cheapest configs: its last line parses, is
+    final, names the card (backend gpu, the card's name), has a headline
+    value > 0 and the budget-skipped rows as ``{"skipped": "budget", ...}``;
+    no config that ran failed (one the budget's end cut is a
+    ``config-timeout`` row). Returns kernel_parity's launches per kernel."""
+    import torch
+
+    rc, out = bench_child(["--config", "kernel_parity"], 600)
+    marked = [json.loads(ln[len(_CHILD_MARK):]) for ln in out.splitlines()
+              if ln.startswith(_CHILD_MARK)]
+    require(rc == 0 and len(marked) == 1, f"kernel_parity child: rc {rc}, "
+            f"{len(marked)} marked lines")
+    par = marked[0]
+    log(f"phase 19 bench kernel_parity (bench_torch.py --config "
+        f"kernel_parity): {par['result']}, launches {par['launches']}, "
+        f"peak memory {par['peak_mem_gib']:.3f} GiB")
+    require(par["result"] is True, "bench kernel_parity_check is true")
+    require(all(v > 0 for v in par["launches"].values()),
+            f"kernel_parity launched every kernel: {par['launches']}")
+    t0 = time.perf_counter()
+    rc, out = bench_child([], BENCH_SMOKE_BUDGET_S + 600, env=dict(
+        os.environ, BENCH_BUDGET_S=str(BENCH_SMOKE_BUDGET_S)))
+    lines = out.strip().splitlines()
+    for ln in lines[:-1]:
+        if not ln.startswith("{"):
+            log(f"phase 19 bench: {ln}")
+    last = json.loads(lines[-1])
+    sub = last["sub"]
+    skipped = [k for k, v in sub.items()
+               if isinstance(v, dict) and v.get("skipped") == "budget"]
+    cut = [k for k, v in sub.items()
+           if isinstance(v, dict) and v.get("skipped") == "config-timeout"]
+    ran = [k for k, _, _ in _configs("gpu")
+           if k in sub and k not in skipped + cut]
+    log(f"phase 19 bench with BENCH_BUDGET_S={BENCH_SMOKE_BUDGET_S}: rc "
+        f"{rc}, {time.perf_counter() - t0:.1f} s; final {last['final']}, "
+        f"backend {last['backend']}, device {last['device']}; headline "
+        f"{last['value']} env-steps/s at {last['n_envs']} envs "
+        f"(vs_baseline {last['vs_baseline']}); ran {ran}; cut at the "
+        f"budget's end {cut}; skipped by the budget {skipped} ({smi})")
+    require(rc == 0 and last["final"] is True, "the bench's last line is "
+            "final")
+    require(last["backend"] == "gpu" and last["device"]["name"]
+            == torch.cuda.get_device_name(0) and last["device"]["count"]
+            == torch.cuda.device_count(), "the bench's line names the card")
+    require(last["value"] > 0 and last["n_envs"] == N_HEADLESS,
+            "the bench's headline value > 0 at 4,096 envs")
+    require(skipped and all({"est_s", "remaining_s"} <= set(sub[k])
+                            for k in skipped),
+            "budget-skipped rows {'skipped': 'budget', est_s, remaining_s}")
+    require(not [k for k, v in sub.items() if isinstance(v, dict)
+                 and "error" in v], f"no config of the governed run "
+            f"failed: {sub}")
+    return par["launches"]
 
 
 if __name__ == "__main__":

@@ -124,18 +124,21 @@ class SceneRenderer(_SceneBuffers):
     Buffers: the scene (``_SceneBuffers``) and the camera projection.
 
     ``opts.kernel_attrs`` holds only where the tables allow it
-    (``kernel_attrs_ok``); otherwise the renderer takes the gather path."""
+    (``kernel_attrs_ok``); otherwise the renderer takes the gather path.
+    ``cluster_records=False`` assembles member geometry on the kernel-attrs
+    path too (bench.py's ``CLUSTER_REC=0``)."""
 
     def __init__(self, rt: RenderTables, lights: Lights, opts: RenderOptions,
                  skip_culling=None, static_shadow=None,
                  lod_scale: float = 1.0, fovy: float = math.pi / 3,
                  far: float = 200.0, char_skin: CharSkin = None,
-                 textures: TextureSets = None):
+                 textures: TextureSets = None, cluster_records: bool = True):
         super().__init__(rt, lights, skip_culling, static_shadow, char_skin,
                          textures)
         ka = opts.kernel_attrs and kernel_attrs_ok(rt)
         self.opts = dataclasses.replace(opts, kernel_attrs=ka)
-        self.cluster_records = ka and rt.cl_rest is not None
+        self.cluster_records = (ka and rt.cl_rest is not None
+                                and cluster_records)
         self.lod_scale = float(lod_scale)
         self.fovy = float(fovy)
         self.far = float(far)

@@ -93,6 +93,59 @@ def assert_tree_equal(ref, got, path="tree"):
     assert np.array_equal(a, b), path
 
 
+_JAX_BENCH = """
+import json, sys
+import numpy as np
+import bench
+out = getattr(bench, sys.argv[1])(**json.loads(sys.argv[2]))
+if isinstance(out, np.ndarray):
+    np.save(sys.argv[3], out)
+else:
+    with open(sys.argv[3], "w") as f:
+        json.dump(out, f)
+"""
+
+
+def jax_bench(tmp_path, fn, fast_compile=False, **kw):
+    """Start ``bench.<fn>(**kw)``, bench.py's own function under JAX on the
+    CPU, in a process of its own: its compile cache (``CLAP_TPU_COMP_CACHE``)
+    in ``tmp_path``, so that it writes none into the repo and leaves this
+    process's JAX settings alone; the caller runs the port meanwhile.
+    ``fast_compile``: XLA's backend optimisation off (LLVM -O0), about a
+    fifth less compile for the composed frame, whose bar is a PSNR.
+    Returns ``wait()`` -> its dict, or its frames as numpy."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    flags = os.environ.get("XLA_FLAGS", "")
+    if fast_compile:
+        flags += " --xla_backend_optimization_level=0"
+    out = tmp_path / f"{fn}.out"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags.strip(),
+               CLAP_TPU_COMP_CACHE=str(tmp_path / "jit"))
+    err = tmp_path / f"{fn}.err"
+    with open(err, "w") as f:
+        p = subprocess.Popen([sys.executable, "-c", _JAX_BENCH, fn,
+                              json.dumps(kw), str(out)], cwd=repo, env=env,
+                             stderr=f)
+
+    def wait():
+        try:
+            p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+        assert p.returncode == 0, err.read_text()[-3000:]
+        npy = out.with_suffix(".out.npy")
+        return np.load(npy) if npy.exists() else json.loads(out.read_text())
+
+    return wait
+
+
 def psnr(a, b) -> float:
     mse = float(np.mean((np.asarray(a, np.float64)
                          - np.asarray(b, np.float64)) ** 2))

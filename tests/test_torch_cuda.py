@@ -18,9 +18,9 @@ import pytest
 import torch
 
 from clap_tpu_torch import mathx as mx
+from clap_tpu_torch.bench import parity_scene
 from clap_tpu_torch.ops import ca2d as CA
 from clap_tpu_torch.render import raster as R
-from clap_tpu_torch.scene.terrain import terrain_init_square_landscape
 
 # one rule of each neighbourhood the content rules lack (vn1, vnv); the
 # CPU parity tests import them too
@@ -45,23 +45,6 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _scene_records(W, H, dev):
-    """The kernel_parity_check terrain (bench.py:780-803) as records."""
-    t = terrain_init_square_landscape(5, -8.0, 0.0, -8.0, 16.0, 24)
-    verts = torch.as_tensor(t.vx, device=dev)
-    faces = torch.as_tensor(t.idx.reshape(-1, 3).astype(np.int32),
-                            device=dev)
-    view = mx.mat4_look_at(torch.tensor([6.0, 6.0, 6.0], device=dev),
-                           torch.zeros(3, device=dev),
-                           torch.tensor([0.0, 1.0, 0.0], device=dev))
-    proj = mx.mat4_perspective(math.pi / 3, W / H, 0.1, 50.0, device=dev)
-    clip = torch.cat([verts, torch.ones_like(verts[:, :1])], -1) \
-        @ (proj @ view).T
-    return R.assemble_tri_records(
-        *R.project_to_screen(clip[None], W, H), faces,
-        torch.ones((1, faces.shape[0]), dtype=torch.bool, device=dev))
-
-
 @pytest.mark.cuda
 def test_kernel_build_on_card(cuda_device):
     from clap_tpu_torch import cuda_build
@@ -78,7 +61,7 @@ def test_kernel_build_on_card(cuda_device):
 @pytest.mark.parametrize("depth_only", [False, True])
 def test_kernel_matches_plain_version_on_card(cuda_device, depth_only, W, H,
                                               chunk):
-    rec, ok = _scene_records(W, H, cuda_device)
+    rec, ok = parity_scene(W, H, cuda_device)
     args = R.kernel_inputs(rec, R.bin_triangles(rec, ok, W, H), W, H,
                            chunk=chunk, depth_only=depth_only)
     kernel, plain = (R.raster_depth, R.raster_depth_ref) if depth_only \
@@ -143,7 +126,7 @@ PPT_TARGETS = [(128, 128), (256, 128), (256, 1024)]
 @pytest.mark.parametrize("W,H", PPT_TARGETS)
 @pytest.mark.parametrize("depth_only", [False, True])
 def test_kernel_bit_exact_scene_on_card(cuda_device, depth_only, W, H):
-    rec, ok = _scene_records(W, H, cuda_device)
+    rec, ok = parity_scene(W, H, cuda_device)
     _bit_exact(rec, ok, W, H, depth_only)
 
 
@@ -160,7 +143,7 @@ def test_kernel_bit_exact_pixel_centre_edges_and_ties_on_card(
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth_only", [False, True])
 def test_kernel_all_lists_empty_on_card(cuda_device, depth_only):
-    rec, ok = _scene_records(256, 128, cuda_device)
+    rec, ok = parity_scene(256, 128, cuda_device)
     ok = torch.zeros_like(ok)
     args, r = _bit_exact(rec, ok, 256, 128, depth_only)
     assert int(args[3].sum()) == 0
@@ -189,7 +172,7 @@ def test_kernel_big_list_only_on_card(cuda_device, depth_only):
 @pytest.mark.cuda
 def test_kernel_rejects_cpu_inputs_mixed_with_cuda(cuda_device):
     """A CUDA launch takes CUDA tensors only; it never falls back."""
-    rec, ok = _scene_records(128, 128, cuda_device)
+    rec, ok = parity_scene(128, 128, cuda_device)
     args = list(R.kernel_inputs(rec, R.bin_triangles(rec, ok, 128, 128),
                                 128, 128))
     args[0] = args[0].cpu()
@@ -1032,3 +1015,27 @@ def test_normal_maps_and_material_fbm_match_cpu_on_card(cuda_device):
         assert bool(moved.reshape(2, -1).any(1).all())
         assert min(CS.env_psnr(img, cpu, moved)) >= 35.0
         assert max(CS.env_psnr(t[off].cpu(), cpu, moved)) < 35.0
+
+
+@pytest.mark.cuda
+def test_bench_kernel_parity_on_card(cuda_device):
+    """chip_smoke.py phase 19 (a): ``bench_torch.py --config kernel_parity``
+    in its own process is true (K3, K1, K2 bit-exact against their plain
+    versions; K1 against raster_brute at bench.py's bar) and launched each
+    kernel."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from clap_tpu_torch.bench import _CHILD_MARK
+
+    repo = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, str(repo / "bench_torch.py"),
+                        "--config", "kernel_parity"], cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    marked = [json.loads(ln[len(_CHILD_MARK):]) for ln in
+              r.stdout.splitlines() if ln.startswith(_CHILD_MARK)]
+    assert len(marked) == 1 and marked[0]["result"] is True
+    assert all(v > 0 for v in marked[0]["launches"].values())

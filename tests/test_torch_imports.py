@@ -147,6 +147,14 @@ PARALLEL = ["clap_tpu_torch.parallel", "clap_tpu_torch.parallel.sharding",
             "clap_tpu_torch.parallel.multichip"]
 
 
+@pytest.mark.parametrize("module", ["bench_torch", "clap_tpu_torch.bench",
+                                    "chip_smoke"])
+def test_bench_modules_import_no_jax(module):
+    """The port's bench (the script and its module) and chip_smoke.py,
+    which imports the bench's builders, each on its own in a process."""
+    test_skinned_and_textured_modules_import_no_jax(module)
+
+
 @pytest.mark.parametrize("module", PARALLEL)
 def test_parallel_modules_import_no_jax(module):
     """Env-axis sharding and the sharded composed frame, each on its own."""
@@ -169,8 +177,9 @@ NOT_PORTED = {
 def test_port_covers_every_module_and_public_function():
     """Every module of clap_tpu/ has its counterpart in clap_tpu_torch/
     with every public top-level function and class of the same name,
-    but the TPU-only pieces of NOT_PORTED. The JAX package is read as
-    source, not imported."""
+    but the TPU-only pieces of NOT_PORTED, and every public function of
+    bench.py (the JAX bench) has its namesake in clap_tpu_torch/bench.py.
+    The JAX package and bench.py are read as source, not imported."""
     code = ("import ast, importlib, json, sys\n"
             "from pathlib import Path\n"
             f"skip = {sorted(NOT_PORTED)!r}\n"
@@ -191,6 +200,12 @@ def test_port_covers_every_module_and_public_function():
             "                and f'{rel}:{n.name}' not in skip \\\n"
             "                and not hasattr(m, n.name):\n"
             "            missing.append(f'{rel}:{n.name}')\n"
+            "bench = importlib.import_module('clap_tpu_torch.bench')\n"
+            "for n in ast.parse(Path('bench.py').read_text()).body:\n"
+            "    if isinstance(n, ast.FunctionDef) \\\n"
+            "            and not n.name.startswith('_') \\\n"
+            "            and not hasattr(bench, n.name):\n"
+            "        missing.append(f'bench.py:{n.name}')\n"
             "assert not [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'clap_tpu')]\n"
             "print(json.dumps(missing))\n")

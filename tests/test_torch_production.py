@@ -1,6 +1,6 @@
 """The JAX bench's ``full_frame_production`` configuration (bench.py:281-420)
 of the port against the JAX package at 1 env, 128×96, with a 256² static
-bake (chip_smoke.build_production cut to size: 24² terrain verts, 8
+bake (clap_tpu_torch.bench.build_production cut to size: 24² terrain verts, 8
 cubes): the render tables, the bake, the cluster records and the frame
 (kernel_attrs, raster_cap 4096, the static/dynamic shadow split). Bars:
 tables exact, bake moments within 1e-4 on >= 99.5 % of texels, cluster
@@ -12,14 +12,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from chip_smoke import _cube_field, build_production, production_geometry, \
-    production_frame
 from clap_tpu import mathx as jmx
 from clap_tpu.render import pipeline as jpl
 from clap_tpu.render import scenerender as jsr
 from clap_tpu.render.lights import lights_empty
 from clap_tpu.render.view import make_subview
 from clap_tpu.scene.terrain import terrain_init_square_landscape
+from clap_tpu_torch.bench import (_cube_field, build_production,
+                                  production_frame, production_geometry)
 from clap_tpu_torch.bridge import to_numpy
 from test_torch_common import assert_tree_equal, jnp_tree, psnr
 

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Some phases of chip_smoke.py on the card, without the rest of the script:
 
-    python3 tools/torch_smoke_phases.py 8b 18
+    python3 tools/torch_smoke_phases.py 8b 18 19
 
 ``8b``: the textured frame with normal maps and material fBm against the
 CPU path (``run_tbn_fbm_check``). ``18``: env-axis sharding
 (``run_sharding_phase``) from phase 5's world after its driven run (64
 envs × 256², 11 frames of ``step_and_render``); on a machine with several
-cards the phase also runs over every card. Builds the kernels first and
-prints the card's name and power limit; exits non-zero on a failed check.
+cards the phase also runs over every card. ``19``: bench_torch.py through
+its harness (``run_bench_phase``: kernel_parity, then a run the budget
+cuts to the headline and the cheapest configs). Builds the kernels first
+and prints the card's name and power limit; exits non-zero on a failed
+check.
 """
 import sys
 import time
@@ -18,7 +21,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as CS  # noqa: E402
 
-PHASES = ("8b", "18")
+PHASES = ("8b", "18", "19")
 
 
 def main(argv) -> int:
@@ -42,6 +45,8 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         if phase == "8b":
             CS.run_tbn_fbm_check(dev, smi, CS.require, *checks)
+        elif phase == "19":
+            CS.run_bench_phase(smi)
         else:
             w = CS.build_slice(dev)
             d = CS.drive_frames(w, sync, CS.require)
